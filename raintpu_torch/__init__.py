@@ -15,9 +15,22 @@ find:
   source lives in ``csrc/``);
 - :mod:`raintpu_torch.render.frame` — the batched ``render_frames``.
 
-The framework-free host code of ``raintpu`` (``render.camera`` and
-``data.textures``' database loaders) is imported, not copied. This
-package never imports jax.
+- :mod:`raintpu_torch.render.pipeline` / :mod:`raintpu_torch.render.online`
+  and :mod:`raintpu_torch.cli` — the dataset-to-disk render job
+  (``python -m raintpu_torch.cli``).
+
+This package never imports jax, nor anything of ``raintpu``: the host
+code it shares with the JAX package (camera settings, the texture
+database, dataset plugins, image I/O) is kept here as its own copy.
+Entry points render on the CUDA card unless the caller passes a
+``device`` (``"cpu"`` runs every kernel's plain version).
 """
 
+import torch
+
 __version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the CUDA card."""
+    return torch.device("cuda" if device is None else device)

@@ -1,34 +1,45 @@
 // Fused streak raster+composite for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of raintpu/ops/pallas/fused_kernel.py
-// on the render path: _make_kernel_pipelined (one call per rung, window
-// DMAs read-modify-write the field planes) and _make_kernel_resident (all
-// rungs in one call, the plane stack held in VMEM). Both compute the same
-// per-drop sums; on this card neither memory scheme carries over.
+// on the render path, all three bodies of its two pallas_calls:
+// _make_kernel_pipelined (single-tile windows, one call per rung, window
+// DMAs read-modify-write the field planes), _make_kernel (the same call
+// for windows over MAX_SLAB_AREA = 80,000 px, evaluated in row tiles that
+// bound the TPU's VMEM working set) and _make_kernel_resident (all rungs
+// in one call, the plane stack held in VMEM). All three compute the same
+// per-drop sums; on this card none of their memory schemes carries over,
+// so one kernel takes windows of any size.
 //
 // One thread block per (slot c, frame b) of a rung; a slot at or beyond
 // n_valid[b] returns at once. The block stages the drop's 26 params and
-// its R x (My + Mx) damped DCT coefficients in shared memory, then its
-// threads stride over the (ph, pw) window at the drop's anchor. Each
-// pixel evaluates _patch_eval (inverse homography, rank-R Chebyshev
-// series, tanh-erf content window with its hard cut, ALPHA_CUTOFF) and
-// _plane_contribs, and adds its five contributions into image-sized
-// float32 planes (B, 5, H, W) with atomicAdd. Window pixels outside the
-// image are dropped, which gives the sums of the JAX package's padded and
-// cropped planes. A pixel whose g is 0 contributes exactly 0 to every
-// plane and skips its atomics.
+// its R x (My + Mx) damped DCT coefficients in shared memory (230 floats
+// at the default ladder's R = 6, (My, Mx) = (24, 10)), then its threads
+// stride over the (ph, pw) window at the drop's anchor. Each pixel
+// evaluates _patch_eval (inverse homography, rank-R Chebyshev series,
+// tanh-erf content window with its hard cut, ALPHA_CUTOFF) and
+// _plane_contribs, and adds its contributions into image-sized float32
+// planes (B, P, H, W) with atomicAdd: P = 5 (alpha, log_att, add_rgb) or
+// P = 8, which adds the saturation planes clip(g * sat_rgb, 0, 1). Window
+// pixels outside the image are dropped, which gives the sums of the JAX
+// package's padded and cropped planes. A pixel whose g is 0 contributes
+// exactly 0 to every plane and skips its atomics.
 //
 // What bounds it on this card: per-pixel arithmetic — about R*(My+Mx)
-// FMAs of series, 1 divide, 4 tanh, 1 log and 2 cos per pixel — and the
-// float atomics into the planes (one frame's planes, 9.3 MB at KITTI
-// 1242x375, fit in the 50 MB L2; blocks run frame by frame). The file is
-// built with --fmad=false so each multiply and add rounds as the plain
-// PyTorch version's do; the two then differ only by the order of the
-// atomic sums.
+// multiply-adds of series, 1 divide, 4 tanh, 1 log and 2 cos per pixel
+// (some 300-600 FLOP) — and the float atomics into the planes (one
+// frame's 5 planes, 9.3 MB at KITTI 1242x375, fit in the 50 MB L2; blocks
+// run frame by frame). The operations bound it: at the bench batch ~18 M
+// window pixels of ~400 FLOP are ~0.1 ms at 67 TFLOP/s fp32, above the
+// plane bytes over 3.35 TB/s. The file is built with --fmad=false so each
+// multiply and add rounds as the plain PyTorch version's do; the two then
+// differ only by the order of the atomic sums.
 //
-// Later work to make it fast: a warp per patch row, binning drops into
-// image tiles and accumulating in shared memory in place of global
-// atomics, and one persistent launch over all rungs.
+// A big window makes one block slow: the default ladder's (704, 384) rung
+// gives each of the 256 threads ~1,056 pixels, and one drop's block runs
+// alone on its SM. Later work to make it fast: a warp per patch row, more
+// blocks per big window, binning drops into image tiles and accumulating
+// in shared memory in place of global atomics, and one persistent launch
+// over all rungs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,9 +51,10 @@ constexpr int P_M00 = 0, P_M01 = 1, P_M02 = 2, P_M10 = 3, P_M11 = 4,
               P_M12 = 5, P_M20 = 6, P_M21 = 7, P_M22 = 8;
 constexpr int P_MINCX = 9, P_MINCY = 10, P_SGX = 13, P_SGY = 14, P_LO = 15;
 constexpr int P_ADDR = 16, P_ADDG = 17, P_ADDB = 18;
+constexpr int P_SATR = 19, P_SATG = 20, P_SATB = 21;
 constexpr int P_UL = 22, P_UU = 23, P_VL = 24, P_VU = 25;
 constexpr int N_PARAMS = 26;
-constexpr int N_PLANES = 5;
+constexpr int N_PLANES_SAT = 8;
 
 constexpr float ALPHA_CUTOFF = 2e-4f;
 constexpr float LOG_EPS = 1e-6f;
@@ -62,9 +74,9 @@ fused_raster_kernel(const float* __restrict__ params,   // (B, 26, C)
                     const float* __restrict__ ayc,      // (B, C, R, My)
                     const float* __restrict__ bxc,      // (B, C, R, Mx)
                     const int* __restrict__ n_valid,    // (B,)
-                    float* __restrict__ planes,         // (B, 5, H, W)
+                    float* __restrict__ planes,         // (B, P, H, W)
                     int C, int R, int My, int Mx, int ph, int pw, int H,
-                    int W, float inv_th, float inv_tw) {
+                    int W, int n_planes, float inv_th, float inv_tw) {
   const int c = blockIdx.x;
   const int b = blockIdx.y;
   if (c >= n_valid[b]) return;
@@ -94,12 +106,14 @@ fused_raster_kernel(const float* __restrict__ params,   // (B, 26, C)
   const float ul = prm[P_UL], uu = prm[P_UU], vl = prm[P_VL], vu = prm[P_VU];
   const float lo = prm[P_LO];
   const float add_r = prm[P_ADDR], add_g = prm[P_ADDG], add_b = prm[P_ADDB];
+  const float sat_r = prm[P_SATR], sat_g = prm[P_SATG], sat_b = prm[P_SATB];
+  const bool with_sat = n_planes == N_PLANES_SAT;
   const float den_x = SQRT2 * sx, den_y = SQRT2 * sy;
   const float mx = 0.25f + 4.0f * sx;
   const float my = 0.25f + 4.0f * sy;
 
   const size_t plane = (size_t)H * W;
-  float* out = planes + (size_t)b * N_PLANES * plane;
+  float* out = planes + (size_t)b * n_planes * plane;
   const int n_px = ph * pw;
   for (int p = threadIdx.x; p < n_px; p += blockDim.x) {
     const int i = p / pw;
@@ -154,7 +168,7 @@ fused_raster_kernel(const float* __restrict__ params,   // (B, 26, C)
           yhat <= vu + my))
       win = 0.0f;
     g = fminf(fmaxf(g, 0.0f), 1.0f) * win;
-    if (!(g > ALPHA_CUTOFF)) continue;   // all five contributions are 0
+    if (!(g > ALPHA_CUTOFF)) continue;   // every contribution is 0
 
     const size_t o = (size_t)y * W + x;
     atomicAdd(out + o, g);
@@ -162,25 +176,32 @@ fused_raster_kernel(const float* __restrict__ params,   // (B, 26, C)
     atomicAdd(out + 2 * plane + o, g * add_r);
     atomicAdd(out + 3 * plane + o, g * add_g);
     atomicAdd(out + 4 * plane + o, g * add_b);
+    if (with_sat) {
+      atomicAdd(out + 5 * plane + o, fminf(fmaxf(g * sat_r, 0.0f), 1.0f));
+      atomicAdd(out + 6 * plane + o, fminf(fmaxf(g * sat_g, 0.0f), 1.0f));
+      atomicAdd(out + 7 * plane + o, fminf(fmaxf(g * sat_b, 0.0f), 1.0f));
+    }
   }
 }
 
 }  // namespace
 
-// Accumulate one rung's drops into planes (B, 5, H, W) on `stream`.
-// Returns the launch's cudaError_t (0 on success); does not synchronise.
+// Accumulate one rung's drops into planes (B, n_planes, H, W), n_planes
+// 5 or 8, on `stream`. Returns the launch's cudaError_t (0 on success);
+// does not synchronise.
 extern "C" int fused_raster_launch(const float* params, const int* anchor,
                                    const float* ayc, const float* bxc,
                                    const int* n_valid, float* planes, int B,
                                    int C, int R, int My, int Mx, int ph,
-                                   int pw, int H, int W, float inv_th,
-                                   float inv_tw, void* stream) {
+                                   int pw, int H, int W, int n_planes,
+                                   float inv_th, float inv_tw,
+                                   void* stream) {
   if (B == 0 || C == 0) return 0;
   const dim3 grid((unsigned)C, (unsigned)B);
   const size_t smem = sizeof(float) * (N_PARAMS + (size_t)R * (My + Mx));
   fused_raster_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       params, anchor, ayc, bxc, n_valid, planes, C, R, My, Mx, ph, pw, H, W,
-      inv_th, inv_tw);
+      n_planes, inv_th, inv_tw);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at
-first use into ``raintpu_torch/_build/<name>-<hash>.so``, where the hash
+first use (or all at once by :func:`build_all`, one nvcc per source in
+parallel) into ``raintpu_torch/_build/<name>-<hash>.so``, where the hash
 covers the source and the compiler flags, so an edited source rebuilds
 and an unchanged one loads the library already built. Nothing here
 includes PyTorch's headers: a build takes seconds.
@@ -47,18 +48,35 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return build_all([name])[0]
+
+
+def build_all(names) -> list:
+    """Compile every csrc/<name>.cu not built yet, one nvcc process per
+    source, all started together. Returns the libraries' paths."""
+    outs = [library_path(name) for name in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        jobs.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, tmp, out, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -15,6 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from raintpu_torch import resolve_device
 from raintpu_torch.data.textures import TextureBank
 from raintpu_torch.particles.schema import DropBatch
 
@@ -33,8 +34,10 @@ def numpy_fields(obj) -> Dict[str, np.ndarray]:
 
 
 def drop_batch_from_numpy(arrays: Dict[str, np.ndarray],
-                          device="cpu") -> DropBatch:
-    """Dict of DropBatch fields (numpy, any leading dims) -> DropBatch."""
+                          device=None) -> DropBatch:
+    """Dict of DropBatch fields (numpy, any leading dims) -> DropBatch
+    on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
     missing = set(_DROP_DTYPES) - set(arrays)
     if missing:
         raise KeyError(f"drop arrays lack fields {sorted(missing)}")
@@ -43,8 +46,10 @@ def drop_batch_from_numpy(arrays: Dict[str, np.ndarray],
         for k, dt in _DROP_DTYPES.items()})
 
 
-def texture_bank_from_numpy(raw, ay, bx, device="cpu") -> TextureBank:
-    """(K, TH, TW) textures and (K, R, My) / (K, R, Mx) DCT factors."""
+def texture_bank_from_numpy(raw, ay, bx, device=None) -> TextureBank:
+    """(K, TH, TW) textures and (K, R, My) / (K, R, Mx) DCT factors, on
+    ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
     def f32(a):
         return torch.as_tensor(np.array(a, np.float32), device=device)
 

@@ -9,8 +9,9 @@ to XLA, outside any Pallas kernel); callers keep TF32 off so they are
 exact float32.
 
 Axes of ``_BLOCKED_BLUR_MIN_DIM`` or more, where the JAX package
-switches to block slabs, are not ported: no axis of the KITTI render
-path reaches it.
+switches to block slabs, raise NotImplementedError here: no axis of the
+KITTI paths reaches it, and on a CUDA card the fog's stencil kernel
+(:mod:`raintpu_torch.ops.blur_kernel`) takes any axis length.
 """
 
 from __future__ import annotations

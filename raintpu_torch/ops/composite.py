@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,6 +33,9 @@ class FieldMaps:
     log_att: torch.Tensor   # (..., H, W)  sum_i log(1 - alpha_i * lo_i)
     additive: torch.Tensor  # (..., H, W, 3) sum_i tex_i * color_i * tau1/tau0
     alpha: torch.Tensor     # (..., H, W)  sum_i alpha_i — the rain mask
+    # (..., H, W, 3) sum_i clip(alpha_i * color_i, 0, 1) — the reference's
+    # rainy_saturation_mask; None unless the saturation planes are on.
+    sat: Optional[torch.Tensor] = None
 
 
 def blend_coefficients(iw1: torch.Tensor, iw2: torch.Tensor,

@@ -11,7 +11,9 @@ depth, apply extinction + Henyey-Greenstein in-scattering:
     L        = clip(I * blur(f_ext) + blur(L_in), 0, 1)
 
 with the reference's 25x25 sigma-25 Gaussian as ``blur``, run as one
-channel-major 4-channel blur of [f_ext, L_in_rgb].
+channel-major 4-channel blur of [f_ext, L_in_rgb] through
+:func:`raintpu_torch.ops.blur_kernel.separable_blur` — the stencil
+kernel on a CUDA card, the dense band-matrix products on the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import math
 
 import torch
 
-from raintpu_torch.ops.blur import cv2_gaussian_kernel, separable_blur_hw
+from raintpu_torch.ops.blur import cv2_gaussian_kernel
+from raintpu_torch.ops.blur_kernel import separable_blur
 
 HG_G = 0.97
 FOG_BLUR_KSIZE = 25
@@ -63,7 +66,9 @@ def fog_rain_layer(image: torch.Tensor,
     # One 4-channel blur: [f_ext, l_in_rgb]; the reference blurs a
     # 3-channel broadcast of f_ext, which one channel reproduces.
     stacked = torch.cat([f_ext[..., None, :, :], l_in], dim=-3)
-    blurred = separable_blur_hw(stacked, kernel)
+    h, w = stacked.shape[-2:]
+    blurred = separable_blur(stacked.reshape(-1, h, w),
+                             kernel).reshape(stacked.shape)
     f_ext_b = blurred[..., 0, :, :]                        # (..., H, W)
     l_in_b = torch.movedim(blurred[..., 1:, :, :], -3, -1)  # (..., H, W, 3)
 

@@ -10,22 +10,26 @@ drop's anchor, every pixel
      by Chebyshev recurrence, clips it to [0, 1], multiplies it by the
      tanh-erf content window (hard cut at 4σ + 0.25) and zeroes it
      below ALPHA_CUTOFF;
-  3. adds g, log(max(1 - g·lo, LOG_EPS)) and g·add_rgb into the frame's
-     five image-sized float32 planes (alpha, log_att, add_r, add_g,
-     add_b).
+  3. adds g, log(max(1 - g·lo, LOG_EPS)) and g·add_rgb — and, with the
+     saturation planes, clip(g·sat_rgb, 0, 1) — into the frame's five
+     (or eight) image-sized float32 planes (alpha, log_att, add_r,
+     add_g, add_b[, sat_r, sat_g, sat_b]).
 
 Slots at or beyond ``n_valid[b]`` are skipped, and window pixels
 outside the image are dropped (the JAX package pads its planes and
 crops them afterwards, which gives the same cropped sums).
 
 This replaces the Pallas kernels of ``raintpu/ops/pallas/fused_kernel.py``
-on the render path: ``_make_kernel_pipelined`` (one call per rung,
-window DMAs) and ``_make_kernel_resident`` (all rungs in one call, the
-stack in VMEM). Both compute these sums; they differ only in TPU memory
-placement. :func:`fused_raster_composite` runs the hand-written CUDA
-kernel (``raintpu_torch/csrc/fused_raster.cu``) on CUDA tensors and
-:func:`fused_raster_plain`, the same math in plain PyTorch following
-``_patch_eval``/``_plane_contribs`` line for line, on CPU tensors.
+on the render path: ``_make_kernel_pipelined`` (single-tile windows,
+one call per rung), ``_make_kernel`` (the same call for windows over
+MAX_SLAB_AREA, evaluated in row tiles) and ``_make_kernel_resident``
+(all rungs in one call, the stack in VMEM). All three compute these
+sums; they differ only in TPU memory placement, so one CUDA kernel
+takes windows of any size. :func:`fused_raster_composite` runs the
+hand-written CUDA kernel (``raintpu_torch/csrc/fused_raster.cu``) on
+CUDA tensors and :func:`fused_raster_plain`, the same math in plain
+PyTorch following ``_patch_eval``/``_plane_contribs`` line for line, on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 P_M00, P_M01, P_M02, P_M10, P_M11, P_M12, P_M20, P_M21, P_M22 = range(9)
 P_MINCX, P_MINCY, P_WCX, P_WCY, P_SGX, P_SGY, P_LO = range(9, 16)
 P_ADDR, P_ADDG, P_ADDB = range(16, 19)
-# Pre-tau drop color, read only with the saturation planes (not ported).
+# Pre-tau drop color, read only with the saturation planes.
 P_SATR, P_SATG, P_SATB = range(19, 22)
 # Content band (UL, UU, VL, VU) in normalized texture coords.
 P_UL, P_UU, P_VL, P_VU = range(22, 26)
@@ -51,6 +55,10 @@ N_PARAMS = 26
 LOG_EPS = 1e-6
 ALPHA_CUTOFF = 2e-4
 N_PLANES = 5    # alpha, log_att, add_r, add_g, add_b
+N_PLANES_SAT = 8  # ... and sat_r, sat_g, sat_b (the saturation mask)
+# The plain version evaluates at most this many window pixels at once:
+# _patch_eval keeps ~15 tensors of that size alive.
+PLAIN_CHUNK_PX = 1 << 24
 
 
 @dataclasses.dataclass
@@ -176,10 +184,49 @@ def _check_rung(rung: RasterRung, bsz: int, device) -> None:
             raise ValueError(f"fused_raster: {msg}")
 
 
-def _accumulate_plain(planes: torch.Tensor, rung: RasterRung,
+def _sub_rung(rung: RasterRung, b0: int, b1: int, c0: int,
+              c1: int) -> RasterRung:
+    """Frames [b0, b1) and slots [c0, c1) of a rung."""
+    return RasterRung(
+        params=rung.params[b0:b1, :, c0:c1],
+        anchor=rung.anchor[b0:b1, c0:c1], ayc=rung.ayc[b0:b1, c0:c1],
+        bxc=rung.bxc[b0:b1, c0:c1],
+        n_valid=torch.clamp(rung.n_valid[b0:b1] - c0, 0, c1 - c0),
+        patch_hw=rung.patch_hw)
+
+
+def _accumulate_plain(planes: torch.Tensor, rung: RasterRung, tex_hw,
+                      chunk_px: int) -> None:
+    """planes (B, P, H, W) += this rung's contributions, evaluated over
+    chunks of at most ``chunk_px`` window pixels (whole frames when a
+    frame's slots fit, else slot ranges of one frame). Slots past the
+    batch's largest n_valid are not evaluated."""
+    bsz = planes.shape[0]
+    ph, pw = rung.patch_hw
+    c = min(rung.params.shape[2], int(rung.n_valid.max()))
+    if c <= 0:
+        return
+    frame_px = c * ph * pw
+    if frame_px <= chunk_px:
+        step = max(1, chunk_px // frame_px)
+        for b0 in range(0, bsz, step):
+            b1 = min(b0 + step, bsz)
+            _accumulate_chunk(planes[b0:b1], _sub_rung(rung, b0, b1, 0, c),
+                              tex_hw)
+        return
+    step = max(1, chunk_px // (ph * pw))
+    for b in range(bsz):
+        for c0 in range(0, c, step):
+            _accumulate_chunk(
+                planes[b:b + 1],
+                _sub_rung(rung, b, b + 1, c0, min(c0 + step, c)), tex_hw)
+
+
+def _accumulate_chunk(planes: torch.Tensor, rung: RasterRung,
                       tex_hw) -> None:
-    """planes (B, N_PLANES, H, W) += this rung's contributions."""
-    bsz, _, h, w = planes.shape
+    """planes (B, P, H, W) += one chunk's contributions (every slot of
+    the chunk evaluated at once)."""
+    bsz, n_planes, h, w = planes.shape
     ph, pw = rung.patch_hw
     dev = planes.device
     c = rung.params.shape[2]
@@ -193,7 +240,7 @@ def _accumulate_plain(planes: torch.Tensor, rung: RasterRung,
                < rung.n_valid.to(torch.int64)[:, None])[..., None, None]
     sel = slot_ok & (ys < h) & (xs < w) & (g != 0)
     frame = torch.arange(bsz, device=dev)[:, None, None, None]
-    idx = (frame * (N_PLANES * h * w) + ys * w + xs).expand(g.shape)[sel]
+    idx = (frame * (n_planes * h * w) + ys * w + xs).expand(g.shape)[sel]
 
     def per_pixel(k):
         return rung.params[:, k, :, None, None].expand(g.shape)[sel]
@@ -204,22 +251,34 @@ def _accumulate_plain(planes: torch.Tensor, rung: RasterRung,
                                           LOG_EPS)),
                 gs * per_pixel(P_ADDR), gs * per_pixel(P_ADDG),
                 gs * per_pixel(P_ADDB)]
+    if n_planes == N_PLANES_SAT:
+        # Saturation planes: the sum of clip(drop_rgb, 0, 1) per drop.
+        contribs += [torch.clamp(gs * per_pixel(k), 0.0, 1.0)
+                     for k in (P_SATR, P_SATG, P_SATB)]
     flat = planes.view(-1)
     for k, v in enumerate(contribs):
         flat.index_put_((idx + k * h * w,), v, accumulate=True)
 
 
-def fused_raster_plain(rungs: Sequence[RasterRung], image_hw,
-                       tex_hw) -> torch.Tensor:
-    """Plain PyTorch version: (B, N_PLANES, H, W) float32 planes."""
+def _new_planes(rungs, image_hw, n_planes) -> torch.Tensor:
+    if n_planes not in (N_PLANES, N_PLANES_SAT):
+        raise ValueError(f"fused_raster: n_planes must be {N_PLANES} or "
+                         f"{N_PLANES_SAT}, not {n_planes}")
     device = rungs[0].params.device
     bsz = rungs[0].params.shape[0]
-    h, w = image_hw
-    planes = torch.zeros((bsz, N_PLANES, h, w), dtype=torch.float32,
-                         device=device)
     for rung in rungs:
         _check_rung(rung, bsz, device)
-        _accumulate_plain(planes, rung, tex_hw)
+    return torch.zeros((bsz, n_planes) + tuple(image_hw),
+                       dtype=torch.float32, device=device)
+
+
+def fused_raster_plain(rungs: Sequence[RasterRung], image_hw, tex_hw,
+                       n_planes: int = N_PLANES,
+                       chunk_px: int = PLAIN_CHUNK_PX) -> torch.Tensor:
+    """Plain PyTorch version: (B, n_planes, H, W) float32 planes."""
+    planes = _new_planes(rungs, image_hw, n_planes)
+    for rung in rungs:
+        _accumulate_plain(planes, rung, tex_hw, chunk_px)
     return planes
 
 
@@ -229,7 +288,7 @@ def _kernel_fn():
     lib = cuda_build.load("fused_raster")
     fn = lib.fused_raster_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.fused_raster_error_string.argtypes = [ctypes.c_int]
@@ -238,7 +297,7 @@ def _kernel_fn():
 
 
 def _launch(planes: torch.Tensor, rung: RasterRung, tex_hw) -> None:
-    bsz, _, h, w = planes.shape
+    bsz, n_planes, h, w = planes.shape
     _, _, c = rung.params.shape
     _, _, r, my = rung.ayc.shape
     mx = rung.bxc.shape[3]
@@ -252,33 +311,34 @@ def _launch(planes: torch.Tensor, rung: RasterRung, tex_hw) -> None:
                  rung.ayc.data_ptr(), rung.bxc.data_ptr(),
                  rung.n_valid.data_ptr(), planes.data_ptr(),
                  bsz, c, r, my, mx, rung.patch_hw[0], rung.patch_hw[1],
-                 h, w, 1.0 / th, 1.0 / tw, stream)
+                 h, w, n_planes, 1.0 / th, 1.0 / tw, stream)
     if err != 0:
         raise RuntimeError("fused_raster kernel launch failed: "
                            + lib.fused_raster_error_string(err).decode())
     fused_raster_composite.launches += 1
+    counts = fused_raster_composite.window_launches
+    counts[rung.patch_hw] = counts.get(rung.patch_hw, 0) + 1
 
 
 def fused_raster_composite(rungs: Sequence[RasterRung], image_hw,
-                           tex_hw) -> torch.Tensor:
-    """Accumulate every rung's drops into fresh (B, N_PLANES, H, W)
-    float32 planes: the CUDA kernel (one launch per rung, on the
-    current stream, no synchronisation) for CUDA tensors, the plain
-    version for CPU tensors. ``fused_raster_composite.launches`` counts
-    kernel launches."""
+                           tex_hw, n_planes: int = N_PLANES) -> torch.Tensor:
+    """Accumulate every rung's drops into fresh (B, n_planes, H, W)
+    float32 planes (n_planes 5, or 8 with the saturation planes): the
+    CUDA kernel (one launch per rung, on the current stream, no
+    synchronisation) for CUDA tensors, the plain version for CPU
+    tensors. ``fused_raster_composite.launches`` counts kernel
+    launches, and ``fused_raster_composite.window_launches`` counts them
+    by the rung's (ph, pw) window."""
     device = rungs[0].params.device
     if device.type == "cpu":
-        return fused_raster_plain(rungs, image_hw, tex_hw)
+        return fused_raster_plain(rungs, image_hw, tex_hw, n_planes)
     if device.type != "cuda":
         raise ValueError(f"fused_raster: no kernel for {device.type}")
-    bsz = rungs[0].params.shape[0]
-    h, w = image_hw
-    planes = torch.zeros((bsz, N_PLANES, h, w), dtype=torch.float32,
-                         device=device)
+    planes = _new_planes(rungs, image_hw, n_planes)
     for rung in rungs:
-        _check_rung(rung, bsz, device)
         _launch(planes, rung, tex_hw)
     return planes
 
 
 fused_raster_composite.launches = 0
+fused_raster_composite.window_launches = {}

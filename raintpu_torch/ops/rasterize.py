@@ -28,7 +28,8 @@ from typing import Optional, Tuple
 import torch
 
 from raintpu_torch.ops.fused_raster import (N_PARAMS, P_ADDB, P_ADDG,
-                                            P_ADDR, P_LO)
+                                            P_ADDR, P_LO, P_SATB, P_SATG,
+                                            P_SATR)
 from raintpu_torch.particles.schema import (TYPE_BIG, DropBatch,
                                             first_true_indices, take_drops)
 
@@ -596,9 +597,12 @@ def raster_params_frame(drops: DropBatch,
 
 
 def fill_blend_rows(rung: RungParams, lo: torch.Tensor,
-                    add_rgb: torch.Tensor) -> None:
+                    add_rgb: torch.Tensor,
+                    sat_rgb: Optional[torch.Tensor] = None) -> None:
     """Fill a rung's blend rows (in place) from per-frame-drop arrays
-    lo (..., N) and add_rgb (..., N, 3); invalid slots get 0."""
+    lo (..., N) and add_rgb (..., N, 3), and its saturation rows from
+    the pre-tau drop colors sat_rgb (..., N, 3) when given (else they
+    stay 0); invalid slots get 0."""
     v = rung.valid
     p = rung.params
 
@@ -609,3 +613,7 @@ def fill_blend_rows(rung: RungParams, lo: torch.Tensor,
     p[..., P_ADDR, :] = rows(add_rgb[..., 0])
     p[..., P_ADDG, :] = rows(add_rgb[..., 1])
     p[..., P_ADDB, :] = rows(add_rgb[..., 2])
+    if sat_rgb is not None:
+        p[..., P_SATR, :] = rows(sat_rgb[..., 0])
+        p[..., P_SATG, :] = rows(sat_rgb[..., 1])
+        p[..., P_SATB, :] = rows(sat_rgb[..., 2])

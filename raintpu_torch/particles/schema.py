@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from raintpu_torch import resolve_device
+
 TYPE_BIG = 0
 TYPE_MEDIUM = 1
 TYPE_SMALL = 2
@@ -169,9 +171,11 @@ def cull_to_frame(rec: dict, image_wh) -> dict:
     return {k: v[keep] for k, v in rec.items()}
 
 
-def pack_drop_batch(rec: dict, capacity: int, device="cpu") -> DropBatch:
+def pack_drop_batch(rec: dict, capacity: int, device=None) -> DropBatch:
     """Pad a host record dict into a fixed-capacity DropBatch on
-    ``device`` (the widest drops are kept when over capacity)."""
+    ``device`` (None: the CUDA card; the widest drops are kept when
+    over capacity)."""
+    device = resolve_device(device)
     n = len(rec["ip1"])
     if n > capacity:
         order = np.argsort(-rec["max_width"], kind="stable")[:capacity]

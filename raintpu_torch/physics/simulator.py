@@ -10,16 +10,21 @@ exposure into an image-space streak in the renderer's parsed convention.
 
 Randomness comes from an explicit ``torch.Generator`` (on the device
 the drops are made on). Its draws differ from ``jax.random``'s, so the
-port's simulator is held to the JAX one by statistics only.
+port's simulator is held to the JAX one by statistics only. Where the
+JAX package keys a frame by ``fold_in(PRNGKey(seed), frame_idx)``, the
+port gives each frame a generator of its own (:func:`frame_generator`),
+so a frame's drops do not depend on the batch it is simulated in.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from raintpu_torch import resolve_device
 from raintpu_torch.particles.schema import (DropBatch, TYPE_BIG,
                                             TYPE_MEDIUM, TYPE_SMALL)
 from raintpu_torch.physics import dsd
@@ -86,6 +91,13 @@ def expected_drop_count(cfg: SimConfig, fallrate: float) -> float:
     return float(lam.sum())
 
 
+def _count_draw(generator, cfg: SimConfig, fallrate: torch.Tensor):
+    """Per-stratum rates (B, K), strata centers and each frame's Poisson
+    drop count (B,), unclamped: the first draw a simulation makes."""
+    lam_k, z_c = _strata_rates(cfg, fallrate[:, None], fallrate.device)
+    return lam_k, z_c, torch.poisson(lam_k.sum(-1), generator=generator)
+
+
 def simulate_frames(generator: Optional[torch.Generator],
                     cfg: SimConfig,
                     fallrate: torch.Tensor,
@@ -113,11 +125,7 @@ def simulate_frames(generator: Optional[torch.Generator],
     t_exp = exposure_s.to(torch.float32)[:, None, None]
     n = cfg.capacity
 
-    lam_k, z_c = _strata_rates(cfg, fallrate[:, None], device)  # (B, K)
-    total = lam_k.sum(-1)
-
-    # Poisson count, clamped to capacity.
-    count = torch.poisson(total, generator=generator)
+    lam_k, z_c, count = _count_draw(generator, cfg, fallrate)
     count = torch.clamp_max(count, n).to(torch.int32)
     valid = torch.arange(n, device=device)[None, :] < count[:, None]
 
@@ -212,9 +220,11 @@ def simulate_frame(generator: Optional[torch.Generator],
                    cam_speed_mps: float,
                    exposure_s: Optional[float] = None,
                    focal_scale: float = 1.0,
-                   device="cpu") -> DropBatch:
-    """One frame of :func:`simulate_frames` (scalar settings), (N, ...)."""
+                   device=None) -> DropBatch:
+    """One frame of :func:`simulate_frames` (scalar settings), (N, ...),
+    on ``device`` (None: the CUDA card)."""
     t_exp = cfg.exposure_s if exposure_s is None else exposure_s
+    device = resolve_device(device)
 
     def col(v):
         return torch.full((1,), float(v), dtype=torch.float32,
@@ -223,3 +233,88 @@ def simulate_frame(generator: Optional[torch.Generator],
     out = simulate_frames(generator, cfg, col(fallrate), col(cam_speed_mps),
                           col(t_exp), col(focal_scale))
     return out.map(lambda t: t[0])
+
+
+def frame_generator(seed: int, frame_idx: int, device) -> torch.Generator:
+    """The generator of frame ``frame_idx``'s simulation, on ``device``:
+    seeded from (seed, frame_idx) alone, as the JAX package keys a frame
+    by fold_in(PRNGKey(seed), frame_idx)."""
+    state = np.random.SeedSequence([seed, frame_idx]).generate_state(
+        2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        (int(state[0]) | (int(state[1]) << 32)) & ((1 << 63) - 1))
+
+
+def _stack_batches(batches: Sequence[DropBatch]) -> DropBatch:
+    return DropBatch(**{f.name: torch.cat([getattr(b, f.name)
+                                           for b in batches])
+                        for f in dataclasses.fields(DropBatch)})
+
+
+def simulate_frames_keyed(generators: Sequence[torch.Generator],
+                          cfg: SimConfig,
+                          fallrate: torch.Tensor,
+                          cam_speed_mps: torch.Tensor,
+                          exposure_s: torch.Tensor,
+                          focal_scale: torch.Tensor) -> DropBatch:
+    """Like :func:`simulate_frames`, but frame b draws from
+    ``generators[b]`` alone, so its drops equal a one-frame simulation
+    on that generator whatever batch it is in."""
+    return _stack_batches([
+        simulate_frames(g, cfg, fallrate[b:b + 1], cam_speed_mps[b:b + 1],
+                        exposure_s[b:b + 1], focal_scale[b:b + 1])
+        for b, g in enumerate(generators)])
+
+
+def truncated_count(generator: Optional[torch.Generator], cfg: SimConfig,
+                    fallrate: torch.Tensor) -> torch.Tensor:
+    """Drops lost to the capacity clamp of the simulation that
+    ``generator`` would run at ``fallrate`` (B,): it replays that
+    simulation's count draw on a generator in the same state, so the
+    count is exact, not an estimate. Returns (B,) int32."""
+    _, _, count = _count_draw(generator, cfg, fallrate.to(torch.float32))
+    return torch.clamp_min(count - cfg.capacity, 0).to(torch.int32)
+
+
+def truncated_counts(generators: Sequence[torch.Generator],
+                     cfg: SimConfig, fallrate: torch.Tensor) -> torch.Tensor:
+    """:func:`truncated_count` per frame, frame b on ``generators[b]``."""
+    return torch.cat([truncated_count(g, cfg, fallrate[b:b + 1])
+                      for b, g in enumerate(generators)])
+
+
+def schedule_from_settings(settings, fallrate: float,
+                           n_frames: Optional[int] = None):
+    """Build per-frame (fallrate, speed, exposure, focal_scale) arrays
+    (numpy float32) from reference-style sim settings (normal or steps
+    mode).
+
+    In ``normal`` mode the frame count is sim_duration * cam_hz
+    (``common/db.py:66``); in ``steps`` mode it is the longest schedule
+    (``tools/simulation.py:375-376``), one step per camera frame.
+    """
+    cam = settings.camera
+    sim = settings.sim
+    steps = sim.steps_dict()
+    if sim.mode == "steps" and steps:
+        n = max(len(v) for v in steps.values())
+    else:
+        n = int(round(sim.duration * cam.hz))
+    if n_frames is not None:
+        n = n_frames
+
+    def sched(name, default):
+        vals = steps.get(name)
+        if sim.mode == "steps" and vals:
+            arr = np.asarray(vals, np.float32)
+            # The i-th step value persists once applied (db.py:60-62).
+            out = np.full((n,), arr[-1], np.float32)
+            out[:min(n, len(arr))] = arr[:n]
+            return out
+        return np.full((n,), default, np.float32)
+
+    fall = sched("rain_fallrate", float(fallrate))
+    speed_kmh = sched("cam_motion", 0.0)
+    exposure_ms = sched("cam_exposure", cam.exposure)
+    focal_mm = sched("cam_focal", cam.focal)
+    return fall, speed_kmh / 3.6, exposure_ms * 1e-3, focal_mm / cam.focal

@@ -4,16 +4,19 @@ Counterpart of the fused path of ``raintpu.render.frame``
 (``render_frames`` -> ``_render_frames_fused`` -> ``fused_field_planes``),
 stage by stage over a batch of B frames:
 
-    fog attenuation          ops.fog
-    envmap generation        ops.envmap (at photometry resolution)
+    fog attenuation          batched_fog -> ops.fog (the stencil blur
+                             kernel, ops.blur_kernel, on a GPU)
+    envmap generation        ops.envmap (at photometry resolution, and
+                             at full resolution for save_envmap)
     per-drop photometry      ops.photometry
     per-drop prep            ops.rasterize + ops.composite.blend_coefficients
-    streak raster+composite  ops.fused_raster (the CUDA kernel on a GPU)
+    streak raster+composite  ops.fused_raster (the CUDA kernel on a GPU;
+                             5 planes, or 8 with the saturation mask)
     blend + contrast adjust  ops.composite.blend, finalize_frame
 
-Only the physics strategy with the single-image envmap ('ours') and
-five field planes is ported; the other features of the JAX pipeline
-raise NotImplementedError (see :func:`render_frames`).
+Only the physics strategy with the single-image envmap ('ours') is
+ported; the other features of the JAX pipeline raise
+NotImplementedError (see :func:`render_frames`).
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from raintpu_torch.ops import envmap as envmap_ops
 from raintpu_torch.ops import fog as fog_ops
 from raintpu_torch.ops import photometry as photometry_ops
 from raintpu_torch.ops import rasterize as raster_ops
-from raintpu_torch.ops.fused_raster import RasterRung, fused_raster_composite
+from raintpu_torch.ops.fused_raster import (N_PLANES, N_PLANES_SAT,
+                                            RasterRung,
+                                            fused_raster_composite)
 from raintpu_torch.particles.schema import DropBatch
 from raintpu_torch.render.camera import RenderSettings
 
@@ -74,8 +79,10 @@ class PipelineConfig:
 class FrameOutput:
     rainy_image: torch.Tensor          # (B, H, W, 3) RGB in [0, 1]
     rain_mask: torch.Tensor            # (B, H, W) accumulated alpha
-    envmap: Optional[torch.Tensor]     # always None (save_envmap not ported)
+    envmap: Optional[torch.Tensor]     # (B, H, W_env, 3) or None
     overflow: torch.Tensor             # (B, n_buckets) dropped-drop counts
+    # (B, H, W, 3) sum of clipped per-drop colors — the reference's
+    # rainy_saturation_mask; None unless cfg.compute_saturation_mask.
     saturation_mask: Optional[torch.Tensor] = None
 
 
@@ -117,21 +124,36 @@ def _avg_pool_rgb(img: torch.Tensor, ds: int) -> torch.Tensor:
     return (x * (1.0 / ds)).sum(-4).mean(-2)
 
 
-def frame_background(bg: torch.Tensor, depth: torch.Tensor,
-                     cfg: PipelineConfig):
-    """Drop-independent stage: fog + the photometry-resolution envmap.
-    bg (B, H, W, 3), depth (B, H, W) -> (fogged, env_photo)."""
-    st = cfg.settings
-    cam = st.camera
-    h, w = cfg.image_hw
-    fogged = fog_ops.fog_rain_layer(
+def batched_fog(bg: torch.Tensor, depth: torch.Tensor,
+                cfg: PipelineConfig) -> torch.Tensor:
+    """Whole-batch fog stage: bg (B, H, W, 3), depth (B, H, W) -> the
+    fogged frames, its 25-tap blur one launch of the stencil kernel over
+    the batch's (4B, H, W) stack on a GPU."""
+    cam = cfg.settings.camera
+    return fog_ops.fog_rain_layer(
         bg.to(torch.float32), depth.to(torch.float32),
         rain_intensity=cfg.fallrate, f_number=cam.f_number,
         exposure_s=cam.exposure_s, camera_gain=cam.gain)
+
+
+def frame_background(bg: torch.Tensor, depth: torch.Tensor,
+                     cfg: PipelineConfig):
+    """Drop-independent stage: fog + the envmaps. bg (B, H, W, 3),
+    depth (B, H, W) -> (fogged, env_photo, env_save): env_photo at the
+    photometry resolution, env_save the full-resolution envmap of the
+    fogged frames when cfg.save_envmap, else None."""
+    cam = cfg.settings.camera
+    h, w = cfg.image_hw
+    fogged = batched_fog(bg, depth, cfg)
     gen_ds, _ = env_downsamples(cfg)
     pooled = _avg_pool_rgb(fogged, gen_ds)
     geom_lo = envmap_ops.envmap_geometry(h // gen_ds, w // gen_ds, cam.focal)
-    return fogged, envmap_ops.generate_envmap(pooled, geom_lo)
+    env_photo = envmap_ops.generate_envmap(pooled, geom_lo)
+    env_save = None
+    if cfg.save_envmap:
+        env_save = envmap_ops.generate_envmap(
+            fogged, envmap_ops.envmap_geometry(h, w, cam.focal))
+    return fogged, env_photo, env_save
 
 
 def drop_fused_params(env_rgb: torch.Tensor, drops: DropBatch, textures,
@@ -142,8 +164,9 @@ def drop_fused_params(env_rgb: torch.Tensor, drops: DropBatch, textures,
     texture pick, geometry, damped DCT coefficients and blend rows.
 
     ``tex_idx`` (B, N): the texture of every drop, given as data; when
-    None it is drawn from ``generator``. Returns (list of
-    rasterize.RungParams, overflow (B, n_buckets))."""
+    None it is drawn from ``generator``. The saturation rows carry the
+    drops' pre-tau colors when cfg.compute_saturation_mask, else 0.
+    Returns (list of rasterize.RungParams, overflow (B, n_buckets))."""
     st = cfg.settings
     cam = st.camera
     tex_hw = tuple(textures.raw.shape[1:])
@@ -175,8 +198,9 @@ def drop_fused_params(env_rgb: torch.Tensor, drops: DropBatch, textures,
     rungs = raster_ops.raster_params_frame(
         drops, geom_d, tex_hw, tex_idx, cfg.image_wh, cfg.raster,
         apply_defocus=True, fourier=(textures.ay, textures.bx))
+    sat_rgb = gains if cfg.compute_saturation_mask else None
     for rung in rungs:
-        raster_ops.fill_blend_rows(rung, lo, add_rgb)
+        raster_ops.fill_blend_rows(rung, lo, add_rgb, sat_rgb)
     overflow = torch.stack([r.overflow for r in rungs], dim=-1)
     return rungs, overflow
 
@@ -197,30 +221,37 @@ def fused_field_planes(bg, depth, drops: DropBatch, textures, bin_edges,
                        tex_idx: Optional[torch.Tensor] = None):
     """Batched fused raster+composite up to the field planes.
 
-    Returns (fogged, planes, overflow) with ``planes`` (B, 5, H, W) in
-    plane order (alpha, log_att, add_r, add_g, add_b) — image-sized
-    already (the JAX package's are padded for TPU window tiling)."""
-    fogged, env_photo = frame_background(bg, depth, cfg)
+    Returns (fogged, env_save, planes, overflow) with ``planes``
+    (B, P, H, W) in plane order (alpha, log_att, add_r, add_g, add_b
+    [, sat_r, sat_g, sat_b]) — 8 planes when
+    cfg.compute_saturation_mask — and image-sized already (the JAX
+    package's are padded for TPU window tiling)."""
+    fogged, env_photo, env_save = frame_background(bg, depth, cfg)
     rungs, overflow = drop_fused_params(env_photo, drops, textures,
                                         bin_edges, cfg, generator, tex_idx)
-    planes = fused_raster_composite(kernel_rungs(rungs, cfg), cfg.image_hw,
-                                    tuple(textures.raw.shape[1:]))
-    return fogged, planes, overflow
+    planes = fused_raster_composite(
+        kernel_rungs(rungs, cfg), cfg.image_hw,
+        tuple(textures.raw.shape[1:]),
+        N_PLANES_SAT if cfg.compute_saturation_mask else N_PLANES)
+    return fogged, env_save, planes, overflow
 
 
 def crop_field_planes(planes: torch.Tensor,
                       cfg: PipelineConfig) -> composite_ops.FieldMaps:
-    """(B, 5, >=H, >=W) planes -> FieldMaps at image size."""
+    """(B, 5 | 8, >=H, >=W) planes -> FieldMaps at image size."""
     h, w = cfg.image_hw
     cropped = planes[..., :h, :w].to(torch.float32)
+    sat = None
+    if planes.shape[1] == N_PLANES_SAT:
+        sat = torch.movedim(cropped[:, 5:8], 1, -1)
     return composite_ops.FieldMaps(
         log_att=cropped[:, 1],
         additive=torch.movedim(cropped[:, 2:5], 1, -1),
-        alpha=cropped[:, 0])
+        alpha=cropped[:, 0], sat=sat)
 
 
-def finalize_frame(bg, fogged, fields: composite_ops.FieldMaps, overflow,
-                   cfg: PipelineConfig) -> FrameOutput:
+def finalize_frame(bg, fogged, fields: composite_ops.FieldMaps, env_save,
+                   overflow, cfg: PipelineConfig) -> FrameOutput:
     """Blend fields over the fogged background, then shift each frame's
     mean back to the clear image's mean, and clip."""
     rainy = composite_ops.blend(fogged, fields)
@@ -229,15 +260,14 @@ def finalize_frame(bg, fogged, fields: composite_ops.FieldMaps, overflow,
                      - bg.to(torch.float32).mean(dim=dims, keepdim=True))
     rainy = torch.clamp(rainy, 0.0, 1.0)
     return FrameOutput(rainy_image=rainy, rain_mask=fields.alpha,
-                       envmap=None, overflow=overflow)
+                       envmap=env_save, overflow=overflow,
+                       saturation_mask=fields.sat)
 
 
 def _refuse_unported(cfg: PipelineConfig) -> None:
     st = cfg.settings
     unported = [
         (st.env_type != "ours", f"env_type={st.env_type!r}"),
-        (cfg.save_envmap, "save_envmap"),
-        (cfg.compute_saturation_mask, "compute_saturation_mask"),
         (st.rendering_strategy is not None,
          f"rendering_strategy={st.rendering_strategy!r}"),
         (st.noise_scale * st.noise_std != 0.0, "streak noise"),
@@ -265,11 +295,11 @@ def render_frames(bg: torch.Tensor,
     come from ``tex_idx`` (B, N) when given, else from ``generator``.
 
     Refuses (NotImplementedError) what the port does not do yet:
-    env_type 'pano', save_envmap, compute_saturation_mask, the 'white'
-    and 'naive_db' strategies, and streak noise.
+    env_type 'pano', the 'white' and 'naive_db' strategies, and streak
+    noise.
     """
     _refuse_unported(cfg)
-    fogged, planes, overflow = fused_field_planes(
+    fogged, env_save, planes, overflow = fused_field_planes(
         bg, depth, drops, textures, bin_edges, cfg, generator, tex_idx)
     return finalize_frame(bg, fogged, crop_field_planes(planes, cfg),
-                          overflow, cfg)
+                          env_save, overflow, cfg)

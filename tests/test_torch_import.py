@@ -1,4 +1,5 @@
-"""The PyTorch port imports and renders with jax made unimportable."""
+"""The PyTorch port imports and renders with jax and the JAX package
+(``raintpu``, not ``raintpu_torch``) made unimportable."""
 
 import subprocess
 import sys
@@ -10,10 +11,14 @@ REPO = Path(__file__).resolve().parent.parent
 _SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
+    def blocked(name):
+        return (name in ("jax", "raintpu")
+                or name.startswith(("jax.", "jaxlib", "raintpu.")))
+
     class RefuseJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                raise ImportError("jax is blocked in this process")
+            if blocked(name):
+                raise ImportError(f"{name} is blocked in this process")
             return None
 
     sys.meta_path.insert(0, RefuseJax())
@@ -26,6 +31,10 @@ _SCRIPT = textwrap.dedent("""
         raintpu_torch.__path__, "raintpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    for name in ("raintpu_torch.cli", "raintpu_torch.render.pipeline",
+                 "raintpu_torch.render.online",
+                 "raintpu_torch.ops.blur_kernel"):
+        assert name in names, name
 
     from raintpu_torch.data.textures import (procedural_streak_database,
                                              texture_bank)
@@ -52,11 +61,12 @@ _SCRIPT = textwrap.dedent("""
     out = render_frames(torch.as_tensor(rng.rand(B, H, W, 3), dtype=f32),
                         torch.as_tensor(rng.rand(B, H, W) * 40 + 3,
                                         dtype=f32),
-                        drops, texture_bank(db),
+                        drops, texture_bank(db, device="cpu"),
                         torch.as_tensor(db.bin_edges), cfg, generator=gen)
     assert bool(torch.isfinite(out.rainy_image).all())
     assert tuple(out.rain_mask.shape) == (B, H, W)
-    assert "jax" not in sys.modules, "the port imported jax"
+    loaded = [m for m in sys.modules if blocked(m)]
+    assert not loaded, f"the port imported {loaded}"
     print("modules", len(names), "mask", float(out.rain_mask.sum()))
 """)
 

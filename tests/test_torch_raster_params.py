@@ -74,11 +74,13 @@ def test_drop_fused_params_match(w, h, cds):
     tex_idx = jax.vmap(lambda d, k: jrz.select_textures(
         d, edges, jax.random.split(k)[0]))(drops, keys)
 
-    _, env_t = tframe.frame_background(torch.as_tensor(bg),
-                                       torch.as_tensor(depth), tcfg)
+    _, env_t, _ = tframe.frame_background(torch.as_tensor(bg),
+                                          torch.as_tensor(depth), tcfg)
     t_rungs, t_over = tframe.drop_fused_params(
-        env_t, interop.drop_batch_from_numpy(interop.numpy_fields(drops)),
-        interop.texture_bank_from_numpy(bank.raw, bank.ay, bank.bx),
+        env_t, interop.drop_batch_from_numpy(
+            interop.numpy_fields(drops), device="cpu"),
+        interop.texture_bank_from_numpy(bank.raw, bank.ay, bank.bx,
+                                       device="cpu"),
         torch.as_tensor(db.bin_edges), tcfg,
         tex_idx=torch.as_tensor(np.array(tex_idx)))
 

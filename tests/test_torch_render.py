@@ -81,8 +81,10 @@ def test_render_matches_fused_path(w, h, cds, fold):
         d, edges, jax.random.split(k)[0]))(drops, keys)
     got = tframe.render_frames(
         torch.as_tensor(bg), torch.as_tensor(depth),
-        interop.drop_batch_from_numpy(interop.numpy_fields(drops)),
-        interop.texture_bank_from_numpy(bank.raw, bank.ay, bank.bx),
+        interop.drop_batch_from_numpy(interop.numpy_fields(drops),
+                                      device="cpu"),
+        interop.texture_bank_from_numpy(bank.raw, bank.ay, bank.bx,
+                                        device="cpu"),
         torch.as_tensor(db.bin_edges), tcfg,
         tex_idx=torch.as_tensor(np.array(tex_idx)))
 
@@ -109,7 +111,7 @@ def test_render_draws_textures_from_a_generator():
     db = procedural_streak_database()
     args = (torch.rand(B, h, w, 3, generator=gen),
             torch.rand(B, h, w, generator=gen) * 40 + 3, drops,
-            port_texture_bank(db),
+            port_texture_bank(db, device="cpu"),
             torch.as_tensor(db.bin_edges), tcfg)
     a = tframe.render_frames(*args, generator=torch.Generator().manual_seed(9))
     b = tframe.render_frames(*args, generator=torch.Generator().manual_seed(9))
@@ -119,8 +121,7 @@ def test_render_draws_textures_from_a_generator():
 
 @pytest.mark.parametrize("field,value", [
     ("env_type", "pano"), ("rendering_strategy", "white"),
-    ("rendering_strategy", "naive_db"), ("noise", 1.0),
-    ("save_envmap", True), ("compute_saturation_mask", True)])
+    ("rendering_strategy", "naive_db"), ("noise", 1.0)])
 def test_render_refuses_unported_features(field, value):
     _, tcfg = _configs(32, 16, 1, 8)
     if field == "noise":
@@ -133,3 +134,41 @@ def test_render_refuses_unported_features(field, value):
         tcfg = dataclasses.replace(tcfg, **{field: value})
     with pytest.raises(NotImplementedError):
         tframe.render_frames(None, None, None, None, None, tcfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("save_envmap", True), ("compute_saturation_mask", True)])
+def test_render_optional_outputs(field, value):
+    """save_envmap and the saturation planes add their outputs and leave
+    the image and the mask as they were."""
+    w, h = 96, 48
+    _, tcfg = _configs(w, h, 4, 32)
+    gen = torch.Generator().manual_seed(3)
+    ones = torch.ones(B)
+    drops = tsim.simulate_frames(
+        gen, tsim.SimConfig(image_wh=(w, h), focal_px=(300.0, 300.0),
+                            exposure_s=2e-3, capacity=64, z_max=5.0),
+        ones * 150.0, ones * 5.0, ones * 2e-3, ones)
+    db = procedural_streak_database()
+    bg = torch.rand(B, h, w, 3, generator=gen)
+    args = (bg, torch.rand(B, h, w, generator=gen) * 40 + 3, drops,
+            port_texture_bank(db, device="cpu"),
+            torch.as_tensor(db.bin_edges))
+    tex_idx = trz.select_textures(drops, args[-1], gen)
+    base = tframe.render_frames(*args, tcfg, tex_idx=tex_idx)
+    got = tframe.render_frames(
+        *args, dataclasses.replace(tcfg, **{field: value}), tex_idx=tex_idx)
+    assert torch.equal(got.rain_mask, base.rain_mask)
+    assert torch.equal(got.rainy_image, base.rainy_image)
+    if field == "save_envmap":
+        assert got.saturation_mask is None
+        assert got.envmap.shape[:2] == (B, h) and got.envmap.shape[-1] == 3
+        assert bool(((got.envmap >= 0) & (got.envmap <= 1)).all())
+    else:
+        assert got.envmap is None
+        sat = got.saturation_mask
+        assert sat.shape == (B, h, w, 3) and bool((sat >= 0).all())
+        assert sat.sum() > 0
+        # Each drop adds clip(alpha * color, 0, 1) only where its alpha
+        # is nonzero.
+        assert bool((sat.sum(-1)[base.rain_mask == 0] == 0).all())

@@ -115,7 +115,7 @@ def test_distributions_match_jax():
 def test_simulate_frame_is_one_frame():
     cfg = tsim.SimConfig.from_settings(KITTI, capacity=512)
     d = tsim.simulate_frame(torch.Generator().manual_seed(1), cfg,
-                            FALLRATE, 8.0)
+                            FALLRATE, 8.0, device="cpu")
     assert d.ip1.shape == (512, 2) and d.valid.shape == (512,)
     lam = tsim.expected_drop_count(cfg, FALLRATE)
     assert 0 < int(d.count()) <= lam + 5 * np.sqrt(lam)
@@ -134,7 +134,8 @@ def _jax_batch(rng, b=2, n=24):
 @pytest.mark.parametrize("capacity", [8, 40])
 def test_compact_drop_batch(rng, capacity):
     jd = _jax_batch(rng)
-    td = interop.drop_batch_from_numpy(interop.numpy_fields(jd))
+    td = interop.drop_batch_from_numpy(interop.numpy_fields(jd),
+                                       device="cpu")
     want = jax.vmap(lambda d: jschema.compact_drop_batch(d, capacity))(jd)
     got = tschema.compact_drop_batch(td, capacity)
     for name, arr in interop.numpy_fields(want).items():
@@ -164,7 +165,7 @@ def test_host_record_helpers(rng):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     cap = len(want["ip1"]) - 3       # over capacity: keeps the widest
     jp = interop.numpy_fields(jschema.pack_drop_batch(want, cap))
-    tp = tschema.pack_drop_batch(got, cap)
+    tp = tschema.pack_drop_batch(got, cap, device="cpu")
     for k, arr in jp.items():
         np.testing.assert_array_equal(getattr(tp, k).numpy(), arr,
                                       err_msg=k)
@@ -173,11 +174,12 @@ def test_host_record_helpers(rng):
 def test_interop_roundtrip(rng):
     jd = _jax_batch(rng)
     fields = interop.numpy_fields(jd)
-    td = interop.drop_batch_from_numpy(fields).to("cpu")
+    td = interop.drop_batch_from_numpy(fields, device="cpu")
     for k, arr in fields.items():
         np.testing.assert_array_equal(getattr(td, k).numpy(), arr)
     with pytest.raises(KeyError):
         interop.drop_batch_from_numpy({"ip1": fields["ip1"]})
     bank = interop.texture_bank_from_numpy(
-        rng.rand(3, 8, 4), rng.rand(3, 2, 5), rng.rand(3, 2, 3))
+        rng.rand(3, 8, 4), rng.rand(3, 2, 5), rng.rand(3, 2, 3),
+        device="cpu")
     assert bank.raw.dtype == torch.float32 and bank.ay.shape == (3, 2, 5)
