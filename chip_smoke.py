@@ -18,15 +18,23 @@ with the default ladder, the saturation mask and the envmap. Phases:
      mass > 1, no bucket overflow, kernel launches counted — and the
      first two frames against the same render on the CPU (plain path);
   6. timing (information, not a claim): images/s of the render with the
-     float inputs perturbed each iteration, and kernel vs plain ms;
+     float inputs perturbed each iteration, and kernel vs plain ms, the
+     kernel also under other row-chunk sizes (TARGET_PX);
   7. blur: the fog stage's stencil kernel against its plain version on
-     the CLI and bench fog stacks and a multi-fold shape, with kernel,
-     plain, conv2d and bound ms;
+     the CLI and bench fog stacks, odd and multi-fold shapes, with
+     kernel, plain, conv2d and bound ms, and the kernel under other tile
+     shapes;
   8. multitile: the raster kernel with 8 planes on every rung of the
-     default ladder at KITTI size, the multi-tile rungs included;
+     default ladder at KITTI size, the multi-tile rungs included, timed
+     under several row-chunk sizes and with every slot empty;
   9. cli: ``cli.main`` renders the dataset on the card; outputs, launch
      counts and the first two frames against the CPU render of the same
-     drops and texture picks.
+     drops and texture picks;
+ 10. stages: stage times of one CLI batch, the raster stage rung by rung.
+
+Each kernel time is printed beside the one recorded for the kernel's
+first design (one block per drop for the raster kernel, 32x128 tiles
+with one shared load per tap for the blur; PERF.md section 6).
 
 Prints a kernels JSON line, then ``{"ok": true, "device": ...}`` as the
 last line. Any failing phase raises and the script exits non-zero.
@@ -34,6 +42,7 @@ last line. Any failing phase raises and the script exits non-zero.
 Run from the repository root:  python3 chip_smoke.py
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -110,6 +119,16 @@ MAX_SLAB_AREA = 80_000
 # Peak rates of one H100 SXM (NVIDIA data sheet) for the bounds.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# Times recorded for the kernels' first designs on an NVIDIA H100 80GB
+# HBM3 at 700 W (two runs each, PERF.md section 6), printed beside this
+# run's: the raster kernel on the bench rungs (K1) and on the default
+# ladder's multi-tile rungs (K2), the blur on the CLI and bench stacks.
+FIRST_DESIGN_MS = {"k1": "0.8985 / 0.9022", "k2": "3.0999 / 3.1023",
+                   "cli fog": "0.3324 / 0.3333",
+                   "bench fog": "1.8771 / 1.8890"}
+# Other launch plans timed beside the chosen one (information).
+SWEEP_TARGET_PX = (1024, 2048, 4096, 8192)
+SWEEP_TILE_HW = ((32, 128), (64, 64), (64, 128), (128, 64), (32, 256))
 # Raster operations per evaluated window pixel besides the DCT series
 # (5 per mode and axis per rank, 2 per rank): the homography and its
 # divide, 2 cos, the tanh-erf window (4 tanh and their polynomials), the
@@ -177,6 +196,21 @@ def event_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def swept_ms(module, name, values, fn, reps):
+    """ms of ``fn`` with ``module.name`` set to each of ``values`` in
+    turn (the launch plan reads it at call time), then restored."""
+    kept = getattr(module, name)
+    times = {}
+    try:
+        for v in values:
+            setattr(module, name, v)
+            times[v] = event_ms(fn, reps)
+    finally:
+        setattr(module, name, kept)
+    return ", ".join(f"{v}{'*' if v == kept else ''}: {t:.4f}"
+                     for v, t in times.items())
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -353,8 +387,12 @@ def timing_phase(cfg, gen, drops, bg, depth, tex, edges, rungs, smi):
         rungs, cfg.image_hw, tex_hw), 3)
     kernel_ms = event_ms(lambda: fused_raster.fused_raster_composite(
         rungs, cfg.image_hw, tex_hw), 20)
-    phase(f"[timing] all rungs: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, on {smi}")
+    phase(f"[timing] all rungs: kernel {kernel_ms:.4f} ms (first design "
+          f"{FIRST_DESIGN_MS['k1']}), plain {plain_ms:.4f} ms, on {smi}")
+    sweep = swept_ms(fused_raster, "TARGET_PX", SWEEP_TARGET_PX,
+                     lambda: fused_raster.fused_raster_composite(
+                         rungs, cfg.image_hw, tex_hw), 20)
+    phase(f"[timing] all rungs, kernel ms by TARGET_PX (* in use): {sweep}")
     return kernel_ms, plain_ms
 
 
@@ -376,6 +414,7 @@ def blur_phase(dev, smi):
     worst, rec = 0.0, None
     for name, shape in (("cli fog", (4 * CLI_BATCH, H, W)),
                         ("bench fog", (4 * BATCH, H, W)),
+                        ("odd width", (2, 37, 333)),
                         ("multi-fold", (2, 9, 300))):
         x = torch.rand(shape, generator=gen, device=dev)
         got = blur_kernel.separable_blur(x, taps)
@@ -396,9 +435,17 @@ def blur_phase(dev, smi):
             phase(f"[blur] {name}: conv2d vs plain {lib_err:.3g}")
         n = x.numel()
         bnd, by = bound_ms(4 * taps.shape[0] * n, 8 * n)
-        phase(f"[blur] {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"conv2d {'n/a' if lib is None else f'{lib:.4f}'} ms, bound "
-              f"{bnd:.4f} ms ({by}), on {smi}")
+        plan = blur_kernel.blur_plan(*shape, r)
+        first = (f" (first design {FIRST_DESIGN_MS[name]})"
+                 if name in FIRST_DESIGN_MS else "")
+        phase(f"[blur] {name}: kernel {ms:.4f} ms{first}, plain {plain:.4f}"
+              f" ms, conv2d {'n/a' if lib is None else f'{lib:.4f}'} ms, "
+              f"bound {bnd:.4f} ms ({by}); tile {plan.tile_h}x"
+              f"{plan.tile_w}, {plan.smem_bytes} B shared; on {smi}")
+        if name in FIRST_DESIGN_MS:
+            sweep = swept_ms(blur_kernel, "TILE_HW", SWEEP_TILE_HW,
+                             lambda: blur_kernel.separable_blur(x, taps), 20)
+            phase(f"[blur] {name}: kernel ms by tile (* in use): {sweep}")
         if name == "cli fog":
             rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                        bound_by=by)
@@ -501,9 +548,28 @@ def multitile_phase(dev, smi):
     plain = event_ms(lambda: fused_raster.fused_raster_plain(
         big, cfg.image_hw, tex_hw, 8), 2)
     bnd, by, px = raster_bound(big, cfg.image_hw, 8)
-    phase(f"[multitile] rungs {multi}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}; {px} window px), "
-          f"on {smi}")
+    phase(f"[multitile] rungs {multi}: kernel {ms:.4f} ms (first design "
+          f"{FIRST_DESIGN_MS['k2']}), plain {plain:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}; {px} window px), on {smi}")
+    sweep = swept_ms(fused_raster, "TARGET_PX", SWEEP_TARGET_PX,
+                     lambda: fused_raster.fused_raster_composite(
+                         big, cfg.image_hw, tex_hw, 8), 10)
+    phase(f"[multitile] rungs {multi}, kernel ms by TARGET_PX (* in use): "
+          f"{sweep}")
+    # Empty blocks: every rung with no valid slot, so each block reads
+    # n_valid and exits; the zero-fill of the planes alone beside it.
+    zero = torch.zeros_like(rungs[0].n_valid)
+    fill = event_ms(lambda: torch.zeros((CLI_BATCH, 8, H, W), device=dev),
+                    10)
+    for i, rung in enumerate(rungs):
+        empty = dataclasses.replace(rung, n_valid=zero)
+        plan = fused_raster.raster_plan(rung.patch_hw,
+                                        rung.params.shape[2], CLI_BATCH)
+        e_ms = event_ms(lambda: fused_raster.fused_raster_composite(
+            [empty], cfg.image_hw, tex_hw, 8), 10)
+        phase(f"[multitile] rung {i} {rung.patch_hw} with n_valid = 0: "
+              f"{e_ms:.4f} ms for {plan.grid[0] * plan.grid[1]} empty "
+              f"blocks (zero-fill of the planes alone {fill:.4f} ms)")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 max_abs_err=worst)
 
@@ -672,6 +738,11 @@ def cli_stages_phase(call, smi):
             times.append(start.elapsed_time(end))
         return float(np.median(times[1:]))
 
+    def raster_rung(i):
+        rung = frame.kernel_rungs(state["prep"][0], cfg)[i]
+        return lambda: fused_raster.fused_raster_composite(
+            [rung], cfg.image_hw, tex_hw, n_planes)
+
     stages = [("fog (blur kernel)", lambda: frame.batched_fog(bg, depth,
                                                                 cfg)),
               ("fog (dense matmul blur)", fog_dense),
@@ -681,6 +752,17 @@ def cli_stages_phase(call, smi):
     for name, fn in stages:
         phase(f"[stages] {name}: {median_ms(fn):.3f} ms per batch of "
               f"{bg.shape[0]}")
+    # The raster stage rung by rung on this batch's own drops (K1 on the
+    # single-tile rungs, K2 on the multi-tile ones; zero-fill included).
+    for i, rung in enumerate(frame.kernel_rungs(state["prep"][0], cfg)):
+        bnd, by, px = raster_bound([rung], cfg.image_hw, n_planes)
+        kind = "K2" if tpu_tiles(*rung.patch_hw) > 1 else "K1"
+        phase(f"[stages] raster rung {i} {rung.patch_hw} ({kind}): "
+              f"{median_ms(raster_rung(i)):.4f} ms, drops "
+              f"{int(rung.n_valid.sum())}, {px} window px, bound "
+              f"{bnd:.4f} ms ({by}), on {smi}")
+    sweep = swept_ms(fused_raster, "TARGET_PX", SWEEP_TARGET_PX, raster, 10)
+    phase(f"[stages] raster (K1 + K2) ms by TARGET_PX (* in use): {sweep}")
     render()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[

@@ -10,36 +10,42 @@
 // per-drop sums; on this card none of their memory schemes carries over,
 // so one kernel takes windows of any size.
 //
-// One thread block per (slot c, frame b) of a rung; a slot at or beyond
-// n_valid[b] returns at once. The block stages the drop's 26 params and
-// its R x (My + Mx) damped DCT coefficients in shared memory (230 floats
-// at the default ladder's R = 6, (My, Mx) = (24, 10)), then its threads
-// stride over the (ph, pw) window at the drop's anchor. Each pixel
-// evaluates _patch_eval (inverse homography, rank-R Chebyshev series,
-// tanh-erf content window with its hard cut, ALPHA_CUTOFF) and
+// Work unit: (frame b, slot c, row chunk k). A chunk is `rows` window
+// rows, rows = max(1, TARGET_PX / pw) chosen by the wrapper
+// (ops/fused_raster.raster_plan), so a unit holds about TARGET_PX pixels
+// and a window at or under TARGET_PX is one unit. One 256-thread block
+// per unit; the grid is (C * n_chunks, B) with the chunk index fastest
+// on x, so a drop's chunks are scheduled side by side. The grid comes
+// from shapes alone: a slot at or beyond n_valid[b] returns at once, as
+// does a chunk whose rows all lie at or below the image's bottom edge,
+// and the host never reads n_valid. The block stages the drop's 26
+// params and its R x (My + Mx) damped DCT coefficients in shared memory,
+// then its threads stride over the chunk's rows clipped to the image
+// (window columns at or past the right edge are never visited). Each
+// pixel evaluates _patch_eval (inverse homography, rank-R Chebyshev
+// series, tanh-erf content window with its hard cut, ALPHA_CUTOFF) and
 // _plane_contribs, and adds its contributions into image-sized float32
 // planes (B, P, H, W) with atomicAdd: P = 5 (alpha, log_att, add_rgb) or
-// P = 8, which adds the saturation planes clip(g * sat_rgb, 0, 1). Window
-// pixels outside the image are dropped, which gives the sums of the JAX
-// package's padded and cropped planes. A pixel whose g is 0 contributes
-// exactly 0 to every plane and skips its atomics.
+// P = 8, which adds the saturation planes clip(g * sat_rgb, 0, 1). A
+// pixel whose g is 0 contributes exactly 0 to every plane and skips its
+// atomics. The file is built with --fmad=false and each pixel runs the
+// float32 operations of the plain PyTorch version in its order, so the
+// two differ only by the order of the atomic sums.
 //
 // What bounds it on this card: per-pixel arithmetic — about R*(My+Mx)
 // multiply-adds of series, 1 divide, 4 tanh, 1 log and 2 cos per pixel
-// (some 300-600 FLOP) — and the float atomics into the planes (one
-// frame's 5 planes, 9.3 MB at KITTI 1242x375, fit in the 50 MB L2; blocks
-// run frame by frame). The operations bound it: at the bench batch ~18 M
-// window pixels of ~400 FLOP are ~0.1 ms at 67 TFLOP/s fp32, above the
-// plane bytes over 3.35 TB/s. The file is built with --fmad=false so each
-// multiply and add rounds as the plain PyTorch version's do; the two then
-// differ only by the order of the atomic sums.
-//
-// A big window makes one block slow: the default ladder's (704, 384) rung
-// gives each of the 256 threads ~1,056 pixels, and one drop's block runs
-// alone on its SM. Later work to make it fast: a warp per patch row, more
-// blocks per big window, binning drops into image tiles and accumulating
-// in shared memory in place of global atomics, and one persistent launch
-// over all rungs.
+// (some 300-1,000 FLOP) — and the float atomics into the planes (one
+// frame's 8 planes, 15 MB at KITTI 1242x375, fit in the 50 MB L2). The
+// operations bound it. One block per drop, as this kernel first was,
+// left a (704, 384) window to a single SM (~1,056 pixels a thread) while
+// the other SMs idled, so a launch lasted as long as its biggest drop;
+// cutting windows into chunks of about TARGET_PX pixels spreads one big
+// drop over dozens of SMs and evens the load. What remains: the empty
+// blocks of unused slots (each reads n_valid and exits), the per-block
+// staging of a drop's coefficients, which small windows (under 1,000
+// px, 3 pixels a thread) do not amortise, and the global atomics. Later
+// work: binning drops into image tiles with shared-memory accumulation,
+// and one persistent launch over all rungs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -76,16 +82,25 @@ fused_raster_kernel(const float* __restrict__ params,   // (B, 26, C)
                     const int* __restrict__ n_valid,    // (B,)
                     float* __restrict__ planes,         // (B, P, H, W)
                     int C, int R, int My, int Mx, int ph, int pw, int H,
-                    int W, int n_planes, float inv_th, float inv_tw) {
-  const int c = blockIdx.x;
+                    int W, int n_planes, float inv_th, float inv_tw,
+                    int rows, int n_chunks) {
+  const int c = blockIdx.x / n_chunks;
   const int b = blockIdx.y;
   if (c >= n_valid[b]) return;
+  const size_t drop = (size_t)b * C + c;
+  const int ax = anchor[drop * 2];
+  const int ay = anchor[drop * 2 + 1];
+  // This chunk's window rows [row0, row1) and columns [0, cols) inside
+  // the image (anchors are clipped to [0, W] x [0, H]).
+  const int row0 = (blockIdx.x - c * n_chunks) * rows;
+  const int row1 = min(min(row0 + rows, ph), H - ay);
+  const int cols = min(pw, W - ax);
+  if (row1 <= row0 || cols <= 0) return;
 
   extern __shared__ float smem[];
   float* prm = smem;                 // N_PARAMS
   float* cy = smem + N_PARAMS;       // R * My
   float* cx = cy + R * My;           // R * Mx
-  const size_t drop = (size_t)b * C + c;
   for (int k = threadIdx.x; k < N_PARAMS; k += blockDim.x)
     prm[k] = params[((size_t)b * N_PARAMS + k) * C + c];
   for (int k = threadIdx.x; k < R * My; k += blockDim.x)
@@ -94,8 +109,6 @@ fused_raster_kernel(const float* __restrict__ params,   // (B, 26, C)
     cx[k] = bxc[drop * R * Mx + k];
   __syncthreads();
 
-  const int ax = anchor[drop * 2];
-  const int ay = anchor[drop * 2 + 1];
   const float ox = (float)ax - prm[P_MINCX];
   const float oy = (float)ay - prm[P_MINCY];
   const float m00 = prm[P_M00], m01 = prm[P_M01], m02 = prm[P_M02];
@@ -114,13 +127,13 @@ fused_raster_kernel(const float* __restrict__ params,   // (B, 26, C)
 
   const size_t plane = (size_t)H * W;
   float* out = planes + (size_t)b * n_planes * plane;
-  const int n_px = ph * pw;
+  const int n_px = (row1 - row0) * cols;
   for (int p = threadIdx.x; p < n_px; p += blockDim.x) {
-    const int i = p / pw;
-    const int j = p - i * pw;
+    const int di = p / cols;
+    const int j = p - di * cols;
+    const int i = row0 + di;
     const int y = ay + i;
     const int x = ax + j;
-    if (y >= H || x >= W) continue;
 
     const float lx = (float)j + ox;
     const float ly = (float)i + oy;
@@ -187,21 +200,29 @@ fused_raster_kernel(const float* __restrict__ params,   // (B, 26, C)
 }  // namespace
 
 // Accumulate one rung's drops into planes (B, n_planes, H, W), n_planes
-// 5 or 8, on `stream`. Returns the launch's cudaError_t (0 on success);
-// does not synchronise.
+// 5 or 8, on `stream`, with the wrapper's launch plan: `rows` window rows
+// per chunk, `n_chunks` chunks per window and the grid (grid_x, grid_y),
+// which must be (C * n_chunks, B). Returns the launch's cudaError_t (0 on
+// success; cudaErrorInvalidValue for a plan that does not cover the
+// window); does not synchronise.
 extern "C" int fused_raster_launch(const float* params, const int* anchor,
                                    const float* ayc, const float* bxc,
                                    const int* n_valid, float* planes, int B,
                                    int C, int R, int My, int Mx, int ph,
                                    int pw, int H, int W, int n_planes,
-                                   float inv_th, float inv_tw,
+                                   float inv_th, float inv_tw, int rows,
+                                   int n_chunks, int grid_x, int grid_y,
                                    void* stream) {
   if (B == 0 || C == 0) return 0;
-  const dim3 grid((unsigned)C, (unsigned)B);
+  if (rows < 1 || n_chunks < 1 || (long long)rows * n_chunks < ph ||
+      (long long)rows * (n_chunks - 1) >= ph ||
+      (long long)C * n_chunks != grid_x || grid_y != B)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
   const size_t smem = sizeof(float) * (N_PARAMS + (size_t)R * (My + Mx));
   fused_raster_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       params, anchor, ayc, bxc, n_valid, planes, C, R, My, Mx, ph, pw, H, W,
-      n_planes, inv_th, inv_tw);
+      n_planes, inv_th, inv_tw, rows, n_chunks);
   return (int)cudaGetLastError();
 }
 

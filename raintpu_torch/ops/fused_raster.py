@@ -29,7 +29,8 @@ takes windows of any size. :func:`fused_raster_composite` runs the
 hand-written CUDA kernel (``raintpu_torch/csrc/fused_raster.cu``) on
 CUDA tensors and :func:`fused_raster_plain`, the same math in plain
 PyTorch following ``_patch_eval``/``_plane_contribs`` line for line, on
-CPU tensors.
+CPU tensors. :func:`raster_plan` cuts each window into row chunks of
+about ``TARGET_PX`` pixels, one kernel block each.
 """
 
 from __future__ import annotations
@@ -59,6 +60,12 @@ N_PLANES_SAT = 8  # ... and sat_r, sat_g, sat_b (the saturation mask)
 # The plain version evaluates at most this many window pixels at once:
 # _patch_eval keeps ~15 tensors of that size alive.
 PLAIN_CHUNK_PX = 1 << 24
+# The kernel gives each block a chunk of whole window rows holding about
+# this many pixels (8 a thread): a big window spreads over many SMs.
+TARGET_PX = 2048
+# CUDA's grid limits: x up to 2**31 - 1, y (the frames) up to 65535.
+MAX_GRID_X = 2 ** 31 - 1
+MAX_GRID_Y = 65535
 
 
 @dataclasses.dataclass
@@ -71,6 +78,32 @@ class RasterRung:
     bxc: torch.Tensor       # (B, C, R, Mx) float32
     n_valid: torch.Tensor   # (B,) int32 — slots [0, n_valid) hold drops
     patch_hw: Tuple[int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterPlan:
+    """The kernel's launch plan for one rung: each window splits into
+    ``n_chunks`` chunks of ``rows`` rows (the last may be shorter), one
+    block per (slot, chunk) on grid x, chunk fastest, and per frame on
+    grid y."""
+
+    rows: int
+    n_chunks: int
+    grid: Tuple[int, int]
+
+
+def raster_plan(patch_hw, slots: int, frames: int) -> RasterPlan:
+    """Launch plan of a rung of ``slots`` slots over ``frames`` frames,
+    from shapes alone (the kernel's blocks skip empty slots and chunks
+    below the image themselves)."""
+    ph, pw = patch_hw
+    rows = min(ph, max(1, TARGET_PX // pw))
+    n_chunks = -(-ph // rows)
+    grid = (slots * n_chunks, frames)
+    if grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_Y:
+        raise ValueError(f"fused_raster: grid {grid} exceeds CUDA's limits "
+                         f"({MAX_GRID_X}, {MAX_GRID_Y})")
+    return RasterPlan(rows, n_chunks, grid)
 
 
 def _erf(x):
@@ -289,7 +322,8 @@ def _kernel_fn():
     fn = lib.fused_raster_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.fused_raster_error_string.argtypes = [ctypes.c_int]
         lib.fused_raster_error_string.restype = ctypes.c_char_p
@@ -301,8 +335,7 @@ def _launch(planes: torch.Tensor, rung: RasterRung, tex_hw) -> None:
     _, _, c = rung.params.shape
     _, _, r, my = rung.ayc.shape
     mx = rung.bxc.shape[3]
-    if bsz > 65535:
-        raise ValueError("fused_raster: at most 65535 frames per call")
+    plan = raster_plan(rung.patch_hw, c, bsz)
     lib, fn = _kernel_fn()
     th, tw = tex_hw
     with torch.cuda.device(planes.device):
@@ -311,7 +344,8 @@ def _launch(planes: torch.Tensor, rung: RasterRung, tex_hw) -> None:
                  rung.ayc.data_ptr(), rung.bxc.data_ptr(),
                  rung.n_valid.data_ptr(), planes.data_ptr(),
                  bsz, c, r, my, mx, rung.patch_hw[0], rung.patch_hw[1],
-                 h, w, n_planes, 1.0 / th, 1.0 / tw, stream)
+                 h, w, n_planes, 1.0 / th, 1.0 / tw, plan.rows,
+                 plan.n_chunks, *plan.grid, stream)
     if err != 0:
         raise RuntimeError("fused_raster kernel launch failed: "
                            + lib.fused_raster_error_string(err).decode())
@@ -324,8 +358,8 @@ def fused_raster_composite(rungs: Sequence[RasterRung], image_hw,
                            tex_hw, n_planes: int = N_PLANES) -> torch.Tensor:
     """Accumulate every rung's drops into fresh (B, n_planes, H, W)
     float32 planes (n_planes 5, or 8 with the saturation planes): the
-    CUDA kernel (one launch per rung, on the current stream, no
-    synchronisation) for CUDA tensors, the plain version for CPU
+    CUDA kernel (one launch per rung, cut by :func:`raster_plan`, on the
+    current stream, no synchronisation) for CUDA tensors, the plain version for CPU
     tensors. ``fused_raster_composite.launches`` counts kernel
     launches, and ``fused_raster_composite.window_launches`` counts them
     by the rung's (ph, pw) window."""
