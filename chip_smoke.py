@@ -13,28 +13,36 @@ with the default ladder, the saturation mask and the envmap. Phases:
      nvcc per source, in parallel);
   3. workload: drops, frames and the texture bank, with the port's code;
   4. kernel against plain: the fused raster kernel and its plain
-     PyTorch version on every rung's operands of this batch;
+     PyTorch version on every rung's operands of this batch, one rung a
+     call and all rungs in one call;
   5. render: ``render_frames`` on the batch — finite outputs, rain mask
-     mass > 1, no bucket overflow, kernel launches counted — and the
-     first two frames against the same render on the CPU (plain path);
+     mass > 1, no bucket overflow, one raster launch and one blur
+     launch — and the first two frames against the same render on the
+     CPU (plain path);
   6. timing (information, not a claim): images/s of the render with the
      float inputs perturbed each iteration, and kernel vs plain ms, the
-     kernel also under other row-chunk sizes (TARGET_PX);
+     kernel also under other image tiles (TILE_HW);
   7. blur: the fog stage's stencil kernel against its plain version on
      the CLI and bench fog stacks, odd and multi-fold shapes, with
      kernel, plain, conv2d and bound ms, and the kernel under other tile
      shapes;
   8. multitile: the raster kernel with 8 planes on every rung of the
-     default ladder at KITTI size, the multi-tile rungs included, timed
-     under several row-chunk sizes and with every slot empty;
-  9. cli: ``cli.main`` renders the dataset on the card; outputs, launch
-     counts and the first two frames against the CPU render of the same
-     drops and texture picks;
- 10. stages: stage times of one CLI batch, the raster stage rung by rung.
+     default ladder at KITTI size, the multi-tile rungs included, one
+     rung a call and all rungs in one call, timed under several image
+     tiles, and one launch with every slot empty against a plain
+     ``torch.zeros`` of the same planes;
+  9. determinism: two launches on the bench rungs and on the default
+     ladder's rungs give the same bits;
+ 10. cli: ``cli.main`` renders the dataset on the card; outputs, one
+     raster launch per batch carrying every rung, and the first two
+     frames against the CPU render of the same drops and texture picks;
+ 11. stages: stage times of one CLI batch, the raster stage rung by rung.
 
 Each kernel time is printed beside the one recorded for the kernel's
 first design (one block per drop for the raster kernel, 32x128 tiles
-with one shared load per tap for the blur; PERF.md section 6).
+with one shared load per tap for the blur) and, for the raster kernel,
+its previous design's (row chunks, one launch per rung; PERF.md section
+6).
 
 Prints a kernels JSON line, then ``{"ok": true, "device": ...}`` as the
 last line. Any failing phase raises and the script exits non-zero.
@@ -79,9 +87,9 @@ LADDER = (BucketSpec(24, 32, 5, 224, 12, 6, 3),
           BucketSpec(48, 32, 8, 64, 12, 6, 3),
           BucketSpec(96, 64, 12, 32, 24, 10, 4),
           BucketSpec(112, 96, 20, 16, 16, 8, 4))
-# Kernel against plain: the same float32 operations in the same order
-# (the kernel is built with --fmad=false); only the order of the atomic
-# sums differs.
+# Kernel against plain: the same float32 operations, each pixel's sums
+# in the same order (the kernel is built with --fmad=false); cos, tanh
+# and log round differently on the card.
 KERNEL_ATOL = 1e-5
 KERNEL_RTOL = 1e-5
 # GPU render against the CPU render of the same frames. Matmul sums and
@@ -101,6 +109,7 @@ RENDER_MAX_FAR_FRACTION = 1e-3
 KERNEL_SOURCE = "raintpu_torch/csrc/fused_raster.cu"
 KERNEL_REPLACES = "raintpu/ops/pallas/fused_kernel.py:1318"
 K2_REPLACES = "raintpu/ops/pallas/fused_kernel.py:274"
+K3_REPLACES = "raintpu/ops/pallas/fused_kernel.py:1165"
 BLUR_SOURCE = "raintpu_torch/csrc/separable_blur.cu"
 BLUR_REPLACES = "raintpu/ops/pallas/blur_kernel.py:282"
 # The blur kernel against its plain version (dense band matmuls): the
@@ -126,8 +135,15 @@ PEAK_BYTES = 3.35e12
 FIRST_DESIGN_MS = {"k1": "0.8985 / 0.9022", "k2": "3.0999 / 3.1023",
                    "cli fog": "0.3324 / 0.3333",
                    "bench fog": "1.8771 / 1.8890"}
+# The raster kernel's previous design (row chunks of ~2,048 px a block,
+# one launch per rung, zero-filled planes and global atomics), same
+# card and limit, two runs each (PERF.md section 6): the bench rungs
+# (K1/K3), the multi-tile rungs (K2) and the CLI batch's raster stage.
+EARLIER_MS = {"k1": "0.7766 / 0.7718", "k2": "0.3410 / 0.3409",
+              "cli raster": "1.119 / 1.200"}
 # Other launch plans timed beside the chosen one (information).
-SWEEP_TARGET_PX = (1024, 2048, 4096, 8192)
+SWEEP_RASTER_TILE_HW = ((32, 64), (16, 128), (8, 128), (16, 64), (8, 256),
+                        (32, 128))
 SWEEP_TILE_HW = ((32, 128), (64, 64), (64, 128), (128, 64), (32, 256))
 # Raster operations per evaluated window pixel besides the DCT series
 # (5 per mode and axis per rank, 2 per rank): the homography and its
@@ -172,7 +188,7 @@ def build_phase() -> None:
 
 def reset_counts() -> None:
     fused_raster.fused_raster_composite.launches = 0
-    fused_raster.fused_raster_composite.window_launches = {}
+    fused_raster.fused_raster_composite.carried = {}
     blur_kernel.separable_blur.launches = 0
 
 
@@ -277,32 +293,46 @@ def workload_phase(dev):
     return cfg, gen, drops, bg, depth, tex, edges
 
 
+def against_plain(tag, label, rungs, image_hw, tex_hw, n_planes):
+    """The kernel against its plain version on one call over ``rungs``:
+    one launch, every value within KERNEL_ATOL + KERNEL_RTOL. Returns
+    the largest difference."""
+    before = fused_raster.fused_raster_composite.launches
+    got = fused_raster.fused_raster_composite(rungs, image_hw, tex_hw,
+                                              n_planes)
+    launched = fused_raster.fused_raster_composite.launches - before
+    want = fused_raster.fused_raster_plain(rungs, image_hw, tex_hw,
+                                           n_planes)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    per_plane = err.amax(dim=(0, 2, 3)).tolist()
+    bad = (err > KERNEL_ATOL + KERNEL_RTOL * want.abs()).sum().item()
+    drops = sum(int(r.n_valid.sum()) for r in rungs)
+    phase(f"[{tag}] {label} drops {drops}: max|kernel-plain| per plane "
+          f"{['%.3g' % e for e in per_plane]}, mass "
+          f"{want[:, 0].sum().item():.2f}; launches {launched}")
+    if bad:
+        raise AssertionError(f"{tag} {label}: {bad} values off by more "
+                             f"than atol {KERNEL_ATOL} + rtol {KERNEL_RTOL}")
+    if launched != 1:
+        raise AssertionError(f"{tag} {label}: {launched} launches, not 1")
+    return max(per_plane)
+
+
 def kernel_phase(cfg, gen, drops, bg, depth, tex, edges):
-    """Kernel against plain on every rung's operands of this batch."""
+    """Kernel against plain on every rung's operands of this batch, one
+    rung a call (K1's use) and all rungs in one call (K3's)."""
     _, env_photo, _ = frame.frame_background(bg, depth, cfg)
     params, _ = frame.drop_fused_params(env_photo, drops, tex, edges, cfg,
                                         generator=gen)
     rungs = frame.kernel_rungs(params, cfg)
     tex_hw = tuple(tex.raw.shape[1:])
-    worst = 0.0
-    for i, rung in enumerate(rungs):
-        got = fused_raster.fused_raster_composite([rung], cfg.image_hw,
-                                                  tex_hw)
-        want = fused_raster.fused_raster_plain([rung], cfg.image_hw, tex_hw)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        per_plane = err.amax(dim=(0, 2, 3)).tolist()
-        bad = (err > KERNEL_ATOL + KERNEL_RTOL * want.abs()).sum().item()
-        phase(f"[kernel] rung {i} {rung.patch_hw} drops "
-              f"{int(rung.n_valid.sum())}: max|kernel-plain| per plane "
-              f"{['%.3g' % e for e in per_plane]}, mass "
-              f"{want[:, 0].sum().item():.2f}")
-        if bad:
-            raise AssertionError(
-                f"rung {i}: {bad} values off by more than atol "
-                f"{KERNEL_ATOL} + rtol {KERNEL_RTOL}")
-        worst = max(worst, max(per_plane))
-    return rungs, worst
+    worst = max(against_plain("kernel", f"rung {i} {rung.patch_hw}", [rung],
+                              cfg.image_hw, tex_hw, 5)
+                for i, rung in enumerate(rungs))
+    every = against_plain("kernel", "all rungs", rungs, cfg.image_hw,
+                          tex_hw, 5)
+    return rungs, worst, every
 
 
 def render_phase(cfg, gen, drops, bg, depth, tex, edges):
@@ -326,9 +356,9 @@ def render_phase(cfg, gen, drops, bg, depth, tex, edges):
         raise AssertionError(f"no rain rendered (mask mass {mass})")
     if overflow:
         raise AssertionError(f"{overflow} drops overflowed their rung")
-    if launches < len(cfg.raster.buckets):
-        raise AssertionError(f"the render launched the kernel {launches} "
-                             "times, not once per rung")
+    if launches != 1:
+        raise AssertionError(f"the render launched the raster kernel "
+                             f"{launches} times, not once")
     if blur_launches != 1:
         raise AssertionError(f"the fog blur kernel launched {blur_launches}"
                              " times, not once per batch")
@@ -349,7 +379,7 @@ def render_phase(cfg, gen, drops, bg, depth, tex, edges):
               f"{far:.3g}")
         if d.max().item() > RENDER_MAX_ABS or far > RENDER_MAX_FAR_FRACTION:
             raise AssertionError(f"GPU {name} disagrees with the CPU render")
-    return launches
+    return launches, blur_launches
 
 
 def timing_phase(cfg, gen, drops, bg, depth, tex, edges, rungs, smi):
@@ -379,21 +409,25 @@ def timing_phase(cfg, gen, drops, bg, depth, tex, edges, rungs, smi):
           f"ms per batch of {BATCH}) on {smi}")
 
     tex_hw = tuple(tex.raw.shape[1:])
+    per_rung = 0.0
     for i, rung in enumerate(rungs):
         k = event_ms(lambda: fused_raster.fused_raster_composite(
             [rung], cfg.image_hw, tex_hw), 20)
+        per_rung += k
         phase(f"[timing] rung {i} {rung.patch_hw}: kernel {k:.4f} ms")
     plain_ms = event_ms(lambda: fused_raster.fused_raster_plain(
         rungs, cfg.image_hw, tex_hw), 3)
     kernel_ms = event_ms(lambda: fused_raster.fused_raster_composite(
         rungs, cfg.image_hw, tex_hw), 20)
-    phase(f"[timing] all rungs: kernel {kernel_ms:.4f} ms (first design "
-          f"{FIRST_DESIGN_MS['k1']}), plain {plain_ms:.4f} ms, on {smi}")
-    sweep = swept_ms(fused_raster, "TARGET_PX", SWEEP_TARGET_PX,
+    phase(f"[timing] one launch per rung: {per_rung:.4f} ms in all")
+    phase(f"[timing] all rungs in one launch: kernel {kernel_ms:.4f} ms "
+          f"(first design {FIRST_DESIGN_MS['k1']}, previous design "
+          f"{EARLIER_MS['k1']}), plain {plain_ms:.4f} ms, on {smi}")
+    sweep = swept_ms(fused_raster, "TILE_HW", SWEEP_RASTER_TILE_HW,
                      lambda: fused_raster.fused_raster_composite(
                          rungs, cfg.image_hw, tex_hw), 20)
-    phase(f"[timing] all rungs, kernel ms by TARGET_PX (* in use): {sweep}")
-    return kernel_ms, plain_ms
+    phase(f"[timing] all rungs, kernel ms by image tile (* in use): {sweep}")
+    return dict(ms=kernel_ms, plain_ms=plain_ms)
 
 
 def library_blur(x, taps_t, r):
@@ -520,28 +554,16 @@ def multitile_phase(dev, smi):
     tex_hw = tuple(tex.raw.shape[1:])
     worst = 0.0
     for i, rung in enumerate(rungs):
-        n = int(rung.n_valid.sum())
-        if i in multi and n == 0:
+        if i in multi and int(rung.n_valid.sum()) == 0:
             raise AssertionError(f"multi-tile rung {i} holds no drop")
-        got = fused_raster.fused_raster_composite([rung], cfg.image_hw,
-                                                  tex_hw, 8)
-        want = fused_raster.fused_raster_plain([rung], cfg.image_hw,
-                                               tex_hw, 8)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        bad = (err > KERNEL_ATOL + KERNEL_RTOL * want.abs()).sum().item()
-        tiles = tpu_tiles(*rung.patch_hw)
-        phase(f"[multitile] rung {i} {rung.patch_hw} ({tiles} TPU row "
-              f"tiles) drops {n}: max|kernel-plain| "
-              f"{err.max().item():.3g} (sat planes "
-              f"{err[:, 5:].max().item():.3g}), mass "
-              f"{want[:, 0].sum().item():.2f}")
-        if bad:
-            raise AssertionError(f"multitile rung {i}: {bad} values off by "
-                                 f"more than atol {KERNEL_ATOL} + rtol "
-                                 f"{KERNEL_RTOL}")
+        label = (f"rung {i} {rung.patch_hw} ({tpu_tiles(*rung.patch_hw)} "
+                 "TPU row tiles)")
+        err = against_plain("multitile", label, [rung], cfg.image_hw,
+                            tex_hw, 8)
         if i in multi:
-            worst = max(worst, err.max().item())
+            worst = max(worst, err)
+    every = against_plain("multitile", "all rungs", rungs, cfg.image_hw,
+                          tex_hw, 8)
     big = [rungs[i] for i in multi]
     ms = event_ms(lambda: fused_raster.fused_raster_composite(
         big, cfg.image_hw, tex_hw, 8), 10)
@@ -549,29 +571,53 @@ def multitile_phase(dev, smi):
         big, cfg.image_hw, tex_hw, 8), 2)
     bnd, by, px = raster_bound(big, cfg.image_hw, 8)
     phase(f"[multitile] rungs {multi}: kernel {ms:.4f} ms (first design "
-          f"{FIRST_DESIGN_MS['k2']}), plain {plain:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by}; {px} window px), on {smi}")
-    sweep = swept_ms(fused_raster, "TARGET_PX", SWEEP_TARGET_PX,
+          f"{FIRST_DESIGN_MS['k2']}, previous design {EARLIER_MS['k2']}), "
+          f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}; {px} window "
+          f"px), on {smi}")
+    sweep = swept_ms(fused_raster, "TILE_HW", SWEEP_RASTER_TILE_HW,
                      lambda: fused_raster.fused_raster_composite(
                          big, cfg.image_hw, tex_hw, 8), 10)
-    phase(f"[multitile] rungs {multi}, kernel ms by TARGET_PX (* in use): "
+    phase(f"[multitile] rungs {multi}, kernel ms by image tile (* in use): "
           f"{sweep}")
-    # Empty blocks: every rung with no valid slot, so each block reads
-    # n_valid and exits; the zero-fill of the planes alone beside it.
+    # Every slot empty: one launch over all rungs that writes zero
+    # planes, beside a plain torch.zeros of the same planes.
     zero = torch.zeros_like(rungs[0].n_valid)
+    empty = [dataclasses.replace(r, n_valid=zero) for r in rungs]
+    if fused_raster.fused_raster_composite(empty, cfg.image_hw, tex_hw,
+                                           8).any():
+        raise AssertionError("an all-empty launch wrote a non-zero value")
+    e_ms = event_ms(lambda: fused_raster.fused_raster_composite(
+        empty, cfg.image_hw, tex_hw, 8), 10)
     fill = event_ms(lambda: torch.zeros((CLI_BATCH, 8, H, W), device=dev),
                     10)
-    for i, rung in enumerate(rungs):
-        empty = dataclasses.replace(rung, n_valid=zero)
-        plan = fused_raster.raster_plan(rung.patch_hw,
-                                        rung.params.shape[2], CLI_BATCH)
-        e_ms = event_ms(lambda: fused_raster.fused_raster_composite(
-            [empty], cfg.image_hw, tex_hw, 8), 10)
-        phase(f"[multitile] rung {i} {rung.patch_hw} with n_valid = 0: "
-              f"{e_ms:.4f} ms for {plan.grid[0] * plan.grid[1]} empty "
-              f"blocks (zero-fill of the planes alone {fill:.4f} ms)")
+    plan = fused_raster.tile_plan(
+        cfg.image_hw, [(r.ayc.shape[2], r.ayc.shape[3], r.bxc.shape[3])
+                       for r in rungs], CLI_BATCH, 8)
+    phase(f"[multitile] all rungs with n_valid = 0: {e_ms:.4f} ms for "
+          f"{plan.grid[0] * plan.grid[1]} blocks of {plan.tile_hw} tiles "
+          f"({plan.smem_bytes} B shared); torch.zeros of the planes "
+          f"{fill:.4f} ms")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                max_abs_err=worst)
+                max_abs_err=worst, all_rungs_err=every, rungs=rungs,
+                tex_hw=tex_hw)
+
+
+def determinism_phase(bench_rungs, cli_rungs, tex_hw_bench, tex_hw_cli):
+    """Two launches on the same operands give the same bits: each
+    pixel's sums run in one fixed order."""
+    for name, rungs, tex_hw, n_planes in (
+            ("bench rungs", bench_rungs, tex_hw_bench, 5),
+            ("default ladder", cli_rungs, tex_hw_cli, 8)):
+        first = fused_raster.fused_raster_composite(rungs, (H, W), tex_hw,
+                                                    n_planes)
+        second = fused_raster.fused_raster_composite(rungs, (H, W), tex_hw,
+                                                     n_planes)
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        phase(f"[determinism] {name}: two launches bit-identical {same} "
+              f"(max difference {(first - second).abs().max().item():.3g})")
+        if not same:
+            raise AssertionError(f"two launches on the {name} differ")
 
 
 def _write_dataset(root):
@@ -623,27 +669,32 @@ def cli_phase(dev, smi):
             rc = cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            windows = dict(fused_raster.fused_raster_composite
-                           .window_launches)
+            launches = fused_raster.fused_raster_composite.launches
+            carried = dict(fused_raster.fused_raster_composite.carried)
             blur_launches = blur_kernel.separable_blur.launches
         finally:
             pipeline.render_frames = render_frames
             pipeline.RenderJob.run = run
-        k1 = sum(n for hw, n in windows.items() if tpu_tiles(*hw) == 1)
-        k2 = sum(n for hw, n in windows.items() if tpu_tiles(*hw) > 1)
+        # Launches that carried K1's windows (single-tile in the JAX
+        # package's plan), K2's (multi-tile), and all rungs at once (K3).
+        k1 = sum(n for hws, n in carried.items()
+                 if any(tpu_tiles(*hw) == 1 for hw in hws))
+        k2 = sum(n for hws, n in carried.items()
+                 if any(tpu_tiles(*hw) > 1 for hw in hws))
+        k3 = sum(n for hws, n in carried.items() if len(hws) > 1)
         n_batches = -(-CLI_FRAMES // CLI_BATCH)
         phase(f"[cli] rc {rc}; stats {stats}; wall {wall:.2f} s; raster "
-              f"launches by window {windows}; blur launches "
-              f"{blur_launches}")
+              f"launches {launches}, by the windows each carried "
+              f"{carried}; blur launches {blur_launches}")
         if rc != 0 or stats.get("rendered") != CLI_FRAMES:
             raise AssertionError(f"the CLI rendered {stats.get('rendered')}"
                                  f" of {CLI_FRAMES} frames")
         if stats.get("overflowed_drops") != 0:
             raise AssertionError("drops overflowed their rung in the CLI")
-        if not (k1 >= 2 * n_batches and k2 >= 2 * n_batches
-                and blur_launches == n_batches):
-            raise AssertionError("the CLI path missed a kernel: K1 "
-                                 f"{k1}, K2 {k2}, K4 {blur_launches}")
+        if not (launches == k1 == k2 == k3 == blur_launches == n_batches):
+            raise AssertionError(
+                f"the CLI path's launches: raster {launches} (K1 {k1}, K2 "
+                f"{k2}, K3 {k3}), K4 {blur_launches}; want {n_batches} each")
         names = [f"{i:06d}.npy" for i in range(CLI_FRAMES)]
         rain = os.path.join(out_root, "customdb", "drive", "rain",
                             f"{CLI_FALLRATE}mm")
@@ -680,7 +731,7 @@ def cli_phase(dev, smi):
             raise AssertionError(f"GPU {name} disagrees with the CPU render")
     phase(f"[cli] img_per_s {stats.get('img_per_s')} (the job's own wall "
           f"clock, kernel builds done, disk writes included) on {smi}")
-    return dict(k1=k1, k2=k2, k4=blur_launches), first["call"]
+    return dict(k1=k1, k2=k2, k3=k3, k4=blur_launches), first["call"]
 
 
 def cli_stages_phase(call, smi):
@@ -747,13 +798,15 @@ def cli_stages_phase(call, smi):
                                                                 cfg)),
               ("fog (dense matmul blur)", fog_dense),
               ("fog + envmaps (photo, full-res)", envmaps),
-              ("per-drop prep", prep), ("raster (K1 + K2)", raster),
+              ("per-drop prep", prep),
+              ("raster, one launch (K1 + K2 + K3)", raster),
               ("fog + finalize", finalize), ("render_frames", render)]
     for name, fn in stages:
         phase(f"[stages] {name}: {median_ms(fn):.3f} ms per batch of "
               f"{bg.shape[0]}")
-    # The raster stage rung by rung on this batch's own drops (K1 on the
-    # single-tile rungs, K2 on the multi-tile ones; zero-fill included).
+    # The raster stage rung by rung on this batch's own drops (K1's
+    # windows on the single-tile rungs, K2's on the multi-tile ones), one
+    # launch a rung.
     for i, rung in enumerate(frame.kernel_rungs(state["prep"][0], cfg)):
         bnd, by, px = raster_bound([rung], cfg.image_hw, n_planes)
         kind = "K2" if tpu_tiles(*rung.patch_hw) > 1 else "K1"
@@ -761,8 +814,13 @@ def cli_stages_phase(call, smi):
               f"{median_ms(raster_rung(i)):.4f} ms, drops "
               f"{int(rung.n_valid.sum())}, {px} window px, bound "
               f"{bnd:.4f} ms ({by}), on {smi}")
-    sweep = swept_ms(fused_raster, "TARGET_PX", SWEEP_TARGET_PX, raster, 10)
-    phase(f"[stages] raster (K1 + K2) ms by TARGET_PX (* in use): {sweep}")
+    bnd, by, px = raster_bound(frame.kernel_rungs(state["prep"][0], cfg),
+                               cfg.image_hw, n_planes)
+    phase(f"[stages] raster, all rungs: bound {bnd:.4f} ms ({by}; {px} "
+          f"window px); previous design {EARLIER_MS['cli raster']} ms")
+    sweep = swept_ms(fused_raster, "TILE_HW", SWEEP_RASTER_TILE_HW, raster,
+                     10)
+    phase(f"[stages] raster ms by image tile (* in use): {sweep}")
     render()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -786,30 +844,46 @@ def main() -> None:
     build_phase()
     dev = torch.device("cuda", 0)
     data = workload_phase(dev)
-    rungs, max_err = kernel_phase(*data)
-    launches = render_phase(*data)
-    kernel_ms, plain_ms = timing_phase(*data, rungs, smi)
+    rungs, max_err, all_err = kernel_phase(*data)
+    launches, blur_launches = render_phase(*data)
+    k1 = timing_phase(*data, rungs, smi)
     k1_bound, k1_by, k1_px = raster_bound(rungs, (H, W), 5)
     phase(f"[timing] all rungs: bound {k1_bound:.4f} ms ({k1_by}; {k1_px} "
           "window px)")
     blur = blur_phase(dev, smi)
     k2 = multitile_phase(dev, smi)
+    determinism_phase(rungs, k2["rungs"], tuple(data[5].raw.shape[1:]),
+                      k2["tex_hw"])
     cli_launches, cli_call = cli_phase(dev, smi)
     cli_stages_phase(cli_call, smi)
-    raster = dict(name="fused_raster", route="cuda", source=KERNEL_SOURCE)
+    raster = dict(name="fused_raster", route="cuda", source=KERNEL_SOURCE,
+                  plain_ms=k1["plain_ms"], bound_ms=k1_bound,
+                  bound_by=k1_by, library_ms=None)
+
+    def by_path(bench, cli_run):
+        """Launches of the bench render and of the CLI run, and their
+        sum."""
+        return {"launches": bench + cli_run,
+                "launches_by_path": {"bench": bench, "cli": cli_run}}
+
+    # K1 and K3 are one launch of the same kernel on the bench path (K1's
+    # windows, all rungs at once); their time is that launch's.
     print(f"[device] nvidia-smi: {smi}", flush=True)
     print(json.dumps({"kernels": [
-        {**raster, "replaces": KERNEL_REPLACES, "launches": launches,
-         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+        {**raster, "replaces": KERNEL_REPLACES,
+         **by_path(launches, cli_launches["k1"]), "max_abs_err": max_err,
+         "ms": k1["ms"]},
         {**raster, "name": "fused_raster_multitile",
-         "replaces": K2_REPLACES, "launches": cli_launches["k2"],
+         "replaces": K2_REPLACES, **by_path(0, cli_launches["k2"]),
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None},
+         "bound_by": k2["bound_by"]},
+        {**raster, "name": "fused_raster_resident",
+         "replaces": K3_REPLACES, **by_path(launches, cli_launches["k3"]),
+         "max_abs_err": max(all_err, k2["all_rungs_err"]), "ms": k1["ms"]},
         {"name": "separable_blur", "route": "cuda", "source": BLUR_SOURCE,
-         "replaces": BLUR_REPLACES, "launches": cli_launches["k4"],
-         **blur}]}))
+         "replaces": BLUR_REPLACES,
+         **by_path(blur_launches, cli_launches["k4"]), **blur}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

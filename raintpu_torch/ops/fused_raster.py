@@ -19,18 +19,28 @@ Slots at or beyond ``n_valid[b]`` are skipped, and window pixels
 outside the image are dropped (the JAX package pads its planes and
 crops them afterwards, which gives the same cropped sums).
 
+Each pixel's sums run rung-major, slot-minor: rung after rung, and
+within a rung slot after slot.
+
 This replaces the Pallas kernels of ``raintpu/ops/pallas/fused_kernel.py``
 on the render path: ``_make_kernel_pipelined`` (single-tile windows,
 one call per rung), ``_make_kernel`` (the same call for windows over
 MAX_SLAB_AREA, evaluated in row tiles) and ``_make_kernel_resident``
-(all rungs in one call, the stack in VMEM). All three compute these
-sums; they differ only in TPU memory placement, so one CUDA kernel
-takes windows of any size. :func:`fused_raster_composite` runs the
-hand-written CUDA kernel (``raintpu_torch/csrc/fused_raster.cu``) on
-CUDA tensors and :func:`fused_raster_plain`, the same math in plain
+(all rungs in one call, the frame's plane stack held on chip and
+written once). All three compute these sums. :func:`fused_raster_composite`
+runs the hand-written CUDA kernel (``raintpu_torch/csrc/fused_raster.cu``)
+on CUDA tensors and :func:`fused_raster_plain`, the same math in plain
 PyTorch following ``_patch_eval``/``_plane_contribs`` line for line, on
-CPU tensors. :func:`raster_plan` cuts each window into row chunks of
-about ``TARGET_PX`` pixels, one kernel block each.
+CPU tensors.
+
+The kernel follows the resident scheme: one launch takes every rung of
+the call (a table of at most ``MAX_RUNGS`` records), one block per
+(image tile, frame). A block lists the drops whose windows overlap its
+tile, in rung-major, slot-minor order, sums their contributions in
+shared memory in that order, and writes the tile's planes once: no
+zero-fill, no global atomics, and two launches give bit-identical
+planes. :func:`tile_plan` picks the tile, the grid and the shared
+memory from shapes alone; the host never reads ``n_valid``.
 """
 
 from __future__ import annotations
@@ -60,9 +70,23 @@ N_PLANES_SAT = 8  # ... and sat_r, sat_g, sat_b (the saturation mask)
 # The plain version evaluates at most this many window pixels at once:
 # _patch_eval keeps ~15 tensors of that size alive.
 PLAIN_CHUNK_PX = 1 << 24
-# The kernel gives each block a chunk of whole window rows holding about
-# this many pixels (8 a thread): a big window spreads over many SMs.
-TARGET_PX = 2048
+# The kernel's image tile (rows, columns): one block per tile and frame,
+# its planes summed in shared memory. Of the tiles that chip_smoke.py
+# sweeps, (32, 64) timed best on the bench rungs, ~2% ahead of (16, 128);
+# on the CLI's rungs the two trade places from run to run (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md section 6).
+TILE_HW = (32, 64)
+# Constants of the kernel's layout (csrc/fused_raster.cu): threads a
+# block, rungs a launch, ranks of a rung's series, entries of the block's drop list, drops staged
+# a round (one a warp), ints of a staged drop's header, and the shared
+# memory a block may use on an H100.
+THREADS = 256
+MAX_RUNGS = 8
+MAX_RANKS = 8
+LIST_CAP = 512
+STAGE = THREADS // 32
+DROP_HDR = 9
+MAX_SMEM_BYTES = 232448
 # CUDA's grid limits: x up to 2**31 - 1, y (the frames) up to 65535.
 MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_Y = 65535
@@ -81,29 +105,53 @@ class RasterRung:
 
 
 @dataclasses.dataclass(frozen=True)
-class RasterPlan:
-    """The kernel's launch plan for one rung: each window splits into
-    ``n_chunks`` chunks of ``rows`` rows (the last may be shorter), one
-    block per (slot, chunk) on grid x, chunk fastest, and per frame on
-    grid y."""
+class TilePlan:
+    """The kernel's launch plan for one call: tiles of ``tile_hw``
+    pixels cover the image, one block per (tile, frame) on the grid
+    (tiles, frames), tiles row-major; each block takes ``smem_bytes`` of
+    shared memory for its planes, a drop list of ``list_cap`` entries and
+    staged drops of up to ``coef_floats`` series coefficients."""
 
-    rows: int
-    n_chunks: int
+    tile_hw: Tuple[int, int]
     grid: Tuple[int, int]
+    smem_bytes: int
+    list_cap: int
+    n_rungs: int
+    coef_floats: int
 
 
-def raster_plan(patch_hw, slots: int, frames: int) -> RasterPlan:
-    """Launch plan of a rung of ``slots`` slots over ``frames`` frames,
-    from shapes alone (the kernel's blocks skip empty slots and chunks
-    below the image themselves)."""
-    ph, pw = patch_hw
-    rows = min(ph, max(1, TARGET_PX // pw))
-    n_chunks = -(-ph // rows)
-    grid = (slots * n_chunks, frames)
-    if grid[0] > MAX_GRID_X or grid[1] > MAX_GRID_Y:
+def raster_smem_bytes(n_planes: int, tile_hw, coef_floats: int) -> int:
+    """Shared memory of one block (the kernel's layout): the tile's
+    planes, the drop list, the warps' hit counts, the rungs' offsets in
+    the scan, and STAGE staged drops (header, params, coefficients)."""
+    floats = (n_planes * tile_hw[0] * tile_hw[1] + LIST_CAP + THREADS // 32
+              + MAX_RUNGS + 1 + STAGE * DROP_HDR
+              + STAGE * (N_PARAMS + coef_floats))
+    return 4 * floats
+
+
+def tile_plan(image_hw, series: Sequence[Tuple[int, int, int]],
+              frames: int, n_planes: int) -> TilePlan:
+    """Launch plan of one call over rungs whose series shapes are
+    ``series`` ((R, My, Mx) each, in rung order), from shapes alone."""
+    h, w = image_hw
+    if not 1 <= len(series) <= MAX_RUNGS:
+        raise ValueError(f"fused_raster: one launch takes 1 to {MAX_RUNGS} "
+                         f"rungs, not {len(series)}")
+    th, tw = TILE_HW
+    grid = (-(-h // th) * -(-w // tw), frames)
+    if not (0 < grid[0] <= MAX_GRID_X and 0 < grid[1] <= MAX_GRID_Y):
         raise ValueError(f"fused_raster: grid {grid} exceeds CUDA's limits "
                          f"({MAX_GRID_X}, {MAX_GRID_Y})")
-    return RasterPlan(rows, n_chunks, grid)
+    if max(r for r, _, _ in series) > MAX_RANKS:
+        raise ValueError(f"fused_raster: the kernel takes series of at most "
+                         f"{MAX_RANKS} ranks")
+    coef = max(r * (my + mx) for r, my, mx in series)
+    smem = raster_smem_bytes(n_planes, TILE_HW, coef)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_raster: a block needs {smem} B of shared "
+                         f"memory, more than {MAX_SMEM_BYTES}")
+    return TilePlan(TILE_HW, grid, smem, LIST_CAP, len(series), coef)
 
 
 def _erf(x):
@@ -293,7 +341,7 @@ def _accumulate_chunk(planes: torch.Tensor, rung: RasterRung,
         flat.index_put_((idx + k * h * w,), v, accumulate=True)
 
 
-def _new_planes(rungs, image_hw, n_planes) -> torch.Tensor:
+def _check_rungs(rungs, n_planes) -> None:
     if n_planes not in (N_PLANES, N_PLANES_SAT):
         raise ValueError(f"fused_raster: n_planes must be {N_PLANES} or "
                          f"{N_PLANES_SAT}, not {n_planes}")
@@ -301,8 +349,12 @@ def _new_planes(rungs, image_hw, n_planes) -> torch.Tensor:
     bsz = rungs[0].params.shape[0]
     for rung in rungs:
         _check_rung(rung, bsz, device)
-    return torch.zeros((bsz, n_planes) + tuple(image_hw),
-                       dtype=torch.float32, device=device)
+
+
+def _new_planes(rungs, image_hw, n_planes) -> torch.Tensor:
+    _check_rungs(rungs, n_planes)
+    return torch.zeros((rungs[0].params.shape[0], n_planes) + tuple(image_hw),
+                       dtype=torch.float32, device=rungs[0].params.device)
 
 
 def fused_raster_plain(rungs: Sequence[RasterRung], image_hw, tex_hw,
@@ -315,14 +367,25 @@ def fused_raster_plain(rungs: Sequence[RasterRung], image_hw, tex_hw,
     return planes
 
 
+class _RungRecord(ctypes.Structure):
+    """One rung of the kernel's table (``struct Rung`` in the source)."""
+
+    _fields_ = [("params", ctypes.c_void_p), ("anchor", ctypes.c_void_p),
+                ("ayc", ctypes.c_void_p), ("bxc", ctypes.c_void_p),
+                ("n_valid", ctypes.c_void_p)] + [
+                    (k, ctypes.c_int)
+                    for k in ("C", "R", "My", "Mx", "ph", "pw")]
+
+
 def _kernel_fn():
     from raintpu_torch import cuda_build
 
     lib = cuda_build.load("fused_raster")
     fn = lib.fused_raster_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.POINTER(_RungRecord), ctypes.c_int,
+                        ctypes.c_void_p] + [ctypes.c_int] * 4
+                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.fused_raster_error_string.argtypes = [ctypes.c_int]
@@ -330,49 +393,60 @@ def _kernel_fn():
     return lib, fn
 
 
-def _launch(planes: torch.Tensor, rung: RasterRung, tex_hw) -> None:
+def _launch(planes: torch.Tensor, rungs: Sequence[RasterRung],
+            tex_hw) -> None:
     bsz, n_planes, h, w = planes.shape
-    _, _, c = rung.params.shape
-    _, _, r, my = rung.ayc.shape
-    mx = rung.bxc.shape[3]
-    plan = raster_plan(rung.patch_hw, c, bsz)
+    plan = tile_plan((h, w), [(r.ayc.shape[2], r.ayc.shape[3],
+                               r.bxc.shape[3]) for r in rungs],
+                     bsz, n_planes)
+    table = (_RungRecord * len(rungs))(*[
+        _RungRecord(r.params.data_ptr(), r.anchor.data_ptr(),
+                    r.ayc.data_ptr(), r.bxc.data_ptr(), r.n_valid.data_ptr(),
+                    r.params.shape[2], r.ayc.shape[2], r.ayc.shape[3],
+                    r.bxc.shape[3], *r.patch_hw) for r in rungs])
     lib, fn = _kernel_fn()
     th, tw = tex_hw
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = fn(rung.params.data_ptr(), rung.anchor.data_ptr(),
-                 rung.ayc.data_ptr(), rung.bxc.data_ptr(),
-                 rung.n_valid.data_ptr(), planes.data_ptr(),
-                 bsz, c, r, my, mx, rung.patch_hw[0], rung.patch_hw[1],
-                 h, w, n_planes, 1.0 / th, 1.0 / tw, plan.rows,
-                 plan.n_chunks, *plan.grid, stream)
+        err = fn(table, len(rungs), planes.data_ptr(), bsz, h, w, n_planes,
+                 1.0 / th, 1.0 / tw, *plan.tile_hw, *plan.grid,
+                 plan.smem_bytes, plan.list_cap, plan.coef_floats, stream)
     if err != 0:
         raise RuntimeError("fused_raster kernel launch failed: "
                            + lib.fused_raster_error_string(err).decode())
     fused_raster_composite.launches += 1
-    counts = fused_raster_composite.window_launches
-    counts[rung.patch_hw] = counts.get(rung.patch_hw, 0) + 1
+    carried = fused_raster_composite.carried
+    windows = tuple(r.patch_hw for r in rungs)
+    carried[windows] = carried.get(windows, 0) + 1
 
 
 def fused_raster_composite(rungs: Sequence[RasterRung], image_hw,
                            tex_hw, n_planes: int = N_PLANES) -> torch.Tensor:
     """Accumulate every rung's drops into fresh (B, n_planes, H, W)
     float32 planes (n_planes 5, or 8 with the saturation planes): the
-    CUDA kernel (one launch per rung, cut by :func:`raster_plan`, on the
-    current stream, no synchronisation) for CUDA tensors, the plain version for CPU
-    tensors. ``fused_raster_composite.launches`` counts kernel
-    launches, and ``fused_raster_composite.window_launches`` counts them
-    by the rung's (ph, pw) window."""
+    CUDA kernel (one launch for all rungs, planned by :func:`tile_plan`,
+    on the current stream, no synchronisation) for CUDA tensors, the
+    plain version for CPU tensors. At most ``MAX_RUNGS`` rungs, which
+    must agree on the batch size and the device.
+    ``fused_raster_composite.launches`` counts kernel launches, and
+    ``fused_raster_composite.carried`` counts them by the rungs' (ph, pw)
+    windows that each carried (a tuple, in rung order)."""
+    if not 1 <= len(rungs) <= MAX_RUNGS:
+        raise ValueError(f"fused_raster: one call takes 1 to {MAX_RUNGS} "
+                         f"rungs, not {len(rungs)}")
     device = rungs[0].params.device
     if device.type == "cpu":
         return fused_raster_plain(rungs, image_hw, tex_hw, n_planes)
     if device.type != "cuda":
         raise ValueError(f"fused_raster: no kernel for {device.type}")
-    planes = _new_planes(rungs, image_hw, n_planes)
-    for rung in rungs:
-        _launch(planes, rung, tex_hw)
+    _check_rungs(rungs, n_planes)
+    planes = torch.empty((rungs[0].params.shape[0], n_planes)
+                         + tuple(image_hw), dtype=torch.float32,
+                         device=device)
+    if planes.numel():
+        _launch(planes, rungs, tex_hw)
     return planes
 
 
 fused_raster_composite.launches = 0
-fused_raster_composite.window_launches = {}
+fused_raster_composite.carried = {}
