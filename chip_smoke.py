@@ -1,16 +1,18 @@
 """Smoke run of the PyTorch port (raintpu_torch) on one NVIDIA GPU.
 
-Drives the port's two paths and checks them. The benchmark workload —
+Drives the port's three paths and checks them. The benchmark workload —
 KITTI 1242x375 at 10 mm/hr, batch 48, drops simulated on the card and
 packed to capacity 320, the four-rung hand ladder, cone_downsample 4
-with env_fold, five float32 planes — and the online CLI path
-(``raintpu_torch.cli.main``) on a 16-frame KITTI-size customdb dataset
-with the default ladder, the saturation mask and the envmap. Phases:
+with env_fold, five float32 planes — the online CLI path
+(``raintpu_torch.cli.main --online``) and the offline CLI path (no
+``--online``: particle XML simulated by the port's tool, parsed by the
+native parser, the fitted ladder) on a 16-frame KITTI-size customdb
+dataset with the saturation mask and the envmap. Phases:
 
   1. device: a CUDA card is required; prints its name, its
      ``nvidia-smi`` name and power limit, and the TF32 flags (off);
-  2. build: compiles both CUDA kernels from raintpu_torch/csrc/ (one
-     nvcc per source, in parallel);
+  2. build: compiles both CUDA kernels and the XML parser from
+     raintpu_torch/csrc/ (one compiler per source, in parallel);
   3. workload: drops, frames and the texture bank, with the port's code;
   4. kernel against plain: the fused raster kernel and its plain
      PyTorch version on every rung's operands of this batch, one rung a
@@ -33,19 +35,34 @@ with the default ladder, the saturation mask and the envmap. Phases:
      ``torch.zeros`` of the same planes;
   9. determinism: two launches on the bench rungs and on the default
      ladder's rungs give the same bits;
- 10. cli: ``cli.main`` renders the dataset on the card; outputs, one
-     raster launch per batch carrying every rung, and the first two
-     frames against the CPU render of the same drops and texture picks;
- 11. stages: stage times of one CLI batch, the raster stage rung by rung.
+ 10. cli: ``cli.main --online`` renders the dataset on the card;
+     outputs, one raster launch per batch carrying every rung, and the
+     first two frames against the CPU render of the same drops and
+     texture picks;
+ 11. stages: stage times of one CLI batch, the raster stage rung by rung;
+ 12. offline: ``cli.main`` without ``--online`` and with the fitted
+     ladder: the tool writes the XML, the native parser reads it, the
+     .npz cache is written; outputs, one raster and one blur launch per
+     batch, frames 0-1 against the CPU render; the ladder fitted on the
+     card beside the one fitted on the CPU from the same sample, the
+     tool's time, the XML's size, parse ms per frame (native, Python);
+ 13. regimes: on the offline run's first batch, the raster kernel
+     against plain and two launches bit-identical on the operands of
+     the fitted ladder, 'white', 'naive_db' and streak noise; the
+     renders of white, naive_db, noise and a synthetic pano on the card
+     against the CPU render of frames 0-1; raster ms per regime;
+ 14. export: a 4-frame online run with ``--export_xml`` whose XML,
+     re-parsed, holds every frame's simulated drops.
 
 Each kernel time is printed beside the one recorded for the kernel's
 first design (one block per drop for the raster kernel, 32x128 tiles
 with one shared load per tap for the blur) and, for the raster kernel,
 its previous design's (row chunks, one launch per rung; PERF.md section
-6).
+6). Each phase's wall time is printed after it.
 
-Prints a kernels JSON line, then ``{"ok": true, "device": ...}`` as the
-last line. Any failing phase raises and the script exits non-zero.
+Prints a kernels JSON line (launches by path: bench, cli, offline,
+regimes), then ``{"ok": true, "device": ...}`` as the last line. Any
+failing phase raises and the script exits non-zero.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -65,16 +82,20 @@ import torch.nn.functional as F
 from raintpu_torch import cli, cuda_build
 from raintpu_torch.data.textures import (procedural_streak_database,
                                          texture_bank)
-from raintpu_torch.ops import blur_kernel, fog, fused_raster
+from raintpu_torch.ops import blur_kernel, fog, fused_raster, rasterize
 from raintpu_torch.ops.blur import cv2_gaussian_kernel, separable_blur_hw
+from raintpu_torch.ops.fused_raster import N_PLANES, N_PLANES_SAT
 from raintpu_torch.ops.rasterize import (BucketSpec, RasterConfig,
                                          select_textures)
+from raintpu_torch.particles import native, xml_io
 from raintpu_torch.particles.schema import TYPE_BIG, compact_drop_batch
 from raintpu_torch.physics.simulator import (SimConfig, frame_generator,
                                              simulate_frames,
                                              simulate_frames_keyed)
 from raintpu_torch.render import frame, pipeline
 from raintpu_torch.render.camera import CameraSettings, RenderSettings
+from raintpu_torch.render.online import OnlineRenderJob
+from raintpu_torch.tools import particles_simulation
 
 H, W = 375, 1242
 BATCH = 48
@@ -177,11 +198,15 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
+    """Both kernels and the XML parser from the checkout's sources, one
+    compiler per source, in parallel."""
     t0 = time.perf_counter()
-    names = ("fused_raster", "separable_blur")
+    names = ("fused_raster", "separable_blur", "xmlparse")
     paths = cuda_build.build_all(names)
     for name in names:
         cuda_build.load(name)
+    if not native.available():
+        raise AssertionError("the native XML parser did not load")
     phase(f"[build] {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -212,6 +237,21 @@ def event_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_ms(fn):
+    """Median CUDA-event ms of 5 calls of ``fn`` after one warm-up, each
+    call timed on its own (host work between the events included)."""
+    times = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[1:]))
 
 
 def swept_ms(module, name, values, fn, reps):
@@ -620,15 +660,15 @@ def determinism_phase(bench_rungs, cli_rungs, tex_hw_bench, tex_hw_cli):
             raise AssertionError(f"two launches on the {name} differ")
 
 
-def _write_dataset(root):
-    """A customdb dataset of CLI_FRAMES KITTI-size frames: .npy RGB
-    (uint8) and depth in metres, sequence 'drive'."""
+def _write_dataset(root, n_frames=CLI_FRAMES):
+    """A customdb dataset of n_frames KITTI-size frames: .npy RGB
+    (uint8) and depth in metres, sequence 'drive'; no particle file."""
     rng = np.random.RandomState(5)
     seq = os.path.join(root, "source", "customdb", "drive")
     for sub in ("rgb", "depth"):
         os.makedirs(os.path.join(seq, sub))
     yy = np.linspace(0.0, 1.0, H, dtype=np.float32)[:, None]
-    for i in range(CLI_FRAMES):
+    for i in range(n_frames):
         img = np.clip(rng.rand(H, W, 3) * 0.5 + 0.4 * yy[..., None], 0, 1)
         np.save(os.path.join(seq, "rgb", f"{i:06d}.npy"),
                 (img * 255).astype(np.uint8))
@@ -637,8 +677,22 @@ def _write_dataset(root):
                 depth.astype(np.float32))
 
 
-def cli_phase(dev, smi):
-    """The online CLI path on the card, end to end."""
+def launch_kinds(carried):
+    """Launches that carried K1's windows (single-tile in the JAX
+    package's plan), K2's (multi-tile), and all rungs at once (K3)."""
+    k1 = sum(n for hws, n in carried.items()
+             if any(tpu_tiles(*hw) == 1 for hw in hws))
+    k2 = sum(n for hws, n in carried.items()
+             if any(tpu_tiles(*hw) > 1 for hw in hws))
+    k3 = sum(n for hws, n in carried.items() if len(hws) > 1)
+    return k1, k2, k3
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` with the counts set to 0 just before: returns
+    the rc, the job's stats, the first render_frames call (args, kwargs,
+    output), the raster launches, the windows they carried, the blur
+    launches and the wall time."""
     first, stats = {}, {}
     render_frames, run = pipeline.render_frames, pipeline.RenderJob.run
 
@@ -651,6 +705,92 @@ def cli_phase(dev, smi):
         stats.update(run(self))
         return stats
 
+    pipeline.render_frames = record_render
+    pipeline.RenderJob.run = record_run
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_raster.fused_raster_composite.launches
+        carried = dict(fused_raster.fused_raster_composite.carried)
+        blur_launches = blur_kernel.separable_blur.launches
+    finally:
+        pipeline.render_frames = render_frames
+        pipeline.RenderJob.run = run
+    return rc, stats, first.get("call"), launches, carried, blur_launches, wall
+
+
+def check_cli_run(tag, rc, stats, launches, carried, blur_launches,
+                  n_frames, n_batch):
+    """rc 0, every frame rendered, no overflow, one raster launch
+    carrying every rung and one blur launch per batch."""
+    k1, k2, k3 = launch_kinds(carried)
+    if rc != 0 or stats.get("rendered") != n_frames:
+        raise AssertionError(f"{tag}: the CLI rendered "
+                             f"{stats.get('rendered')} of {n_frames} frames")
+    if stats.get("overflowed_drops") != 0:
+        raise AssertionError(f"{tag}: drops overflowed their rung")
+    n_batches = -(-n_frames // n_batch)
+    if not (launches == k3 == blur_launches == n_batches
+            and k1 + k2 >= n_batches):
+        raise AssertionError(
+            f"{tag}: launches raster {launches} (K1 {k1}, K2 {k2}, K3 {k3}),"
+            f" K4 {blur_launches}; want {n_batches} raster and blur "
+            "launches, each raster launch carrying every rung")
+    return dict(k1=k1, k2=k2, k3=k3, k4=blur_launches)
+
+
+def check_outputs(tag, out_root, fallrate, n_frames, sat_env=True):
+    """Every frame's outputs on disk; rain in every frame."""
+    names = [f"{i:06d}.npy" for i in range(n_frames)]
+    rain = os.path.join(out_root, "customdb", "drive", "rain",
+                        f"{fallrate}mm")
+    subs = ("rainy_image", "rain_mask") + (("saturation_mask",)
+                                           if sat_env else ())
+    for sub in subs:
+        if sorted(os.listdir(os.path.join(rain, sub))) != names:
+            raise AssertionError(f"{tag}: missing {sub} outputs")
+    if sat_env:
+        envs = os.path.join(out_root, "customdb", "drive", "envmap")
+        if sorted(os.listdir(envs)) != names:
+            raise AssertionError(f"{tag}: missing envmap outputs")
+    masses = [float(np.load(os.path.join(rain, "rain_mask", n)).sum())
+              for n in names]
+    phase(f"[{tag}] mask mass per frame min {min(masses):.2f} max "
+          f"{max(masses):.2f}")
+    if not min(masses) > 0:
+        raise AssertionError(f"{tag}: a frame rendered no rain")
+
+
+def compare_with_cpu(tag, out, ref, names, frames=slice(0, 2)):
+    """GPU outputs of ``frames`` against the CPU render ``ref`` of the
+    same frames, within the render bars."""
+    for name in names:
+        d = (getattr(out, name)[frames].cpu() - getattr(ref, name)).abs()
+        far = (d > RENDER_FAR).float().mean().item()
+        phase(f"[{tag}] GPU vs CPU {name} (frames 0-1): max {d.max():.3g} "
+              f"mean {d.mean():.3g}; share off by > {RENDER_FAR:g}: "
+              f"{far:.3g}")
+        if d.max().item() > RENDER_MAX_ABS or far > RENDER_MAX_FAR_FRACTION:
+            raise AssertionError(f"{tag}: GPU {name} disagrees with the "
+                                 "CPU render")
+
+
+def cpu_render(args, cfg, kw, frames=slice(0, 2)):
+    """render_frames of ``frames`` on the CPU (every stage plain
+    PyTorch), the tensor keyword arguments cut to the same frames."""
+    bg, depth, drops, tex, edges = args
+    kw = {k: None if v is None else v[frames].cpu() for k, v in kw.items()}
+    return frame.render_frames(
+        bg[frames].cpu(), depth[frames].cpu(),
+        drops.map(lambda t: t[frames].cpu()), tex.to("cpu"), edges.cpu(),
+        cfg, **kw)
+
+
+def cli_phase(dev, smi):
+    """The online CLI path on the card, end to end."""
     with tempfile.TemporaryDirectory() as tmp:
         _write_dataset(tmp)
         out_root = os.path.join(tmp, "output")
@@ -661,77 +801,283 @@ def cli_phase(dev, smi):
                 "--save_saturation", "--save_envmap",
                 "--frame_end", str(CLI_FRAMES), "--noverbose",
                 "--device", str(dev)]
-        pipeline.render_frames = record_render
-        pipeline.RenderJob.run = record_run
-        try:
-            reset_counts()
-            t0 = time.perf_counter()
-            rc = cli.main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = fused_raster.fused_raster_composite.launches
-            carried = dict(fused_raster.fused_raster_composite.carried)
-            blur_launches = blur_kernel.separable_blur.launches
-        finally:
-            pipeline.render_frames = render_frames
-            pipeline.RenderJob.run = run
-        # Launches that carried K1's windows (single-tile in the JAX
-        # package's plan), K2's (multi-tile), and all rungs at once (K3).
-        k1 = sum(n for hws, n in carried.items()
-                 if any(tpu_tiles(*hw) == 1 for hw in hws))
-        k2 = sum(n for hws, n in carried.items()
-                 if any(tpu_tiles(*hw) > 1 for hw in hws))
-        k3 = sum(n for hws, n in carried.items() if len(hws) > 1)
-        n_batches = -(-CLI_FRAMES // CLI_BATCH)
+        rc, stats, call, launches, carried, blur_launches, wall = \
+            run_cli(argv)
         phase(f"[cli] rc {rc}; stats {stats}; wall {wall:.2f} s; raster "
               f"launches {launches}, by the windows each carried "
               f"{carried}; blur launches {blur_launches}")
-        if rc != 0 or stats.get("rendered") != CLI_FRAMES:
-            raise AssertionError(f"the CLI rendered {stats.get('rendered')}"
-                                 f" of {CLI_FRAMES} frames")
-        if stats.get("overflowed_drops") != 0:
-            raise AssertionError("drops overflowed their rung in the CLI")
-        if not (launches == k1 == k2 == k3 == blur_launches == n_batches):
-            raise AssertionError(
-                f"the CLI path's launches: raster {launches} (K1 {k1}, K2 "
-                f"{k2}, K3 {k3}), K4 {blur_launches}; want {n_batches} each")
-        names = [f"{i:06d}.npy" for i in range(CLI_FRAMES)]
-        rain = os.path.join(out_root, "customdb", "drive", "rain",
-                            f"{CLI_FALLRATE}mm")
-        for sub in ("rainy_image", "rain_mask", "saturation_mask"):
-            if sorted(os.listdir(os.path.join(rain, sub))) != names:
-                raise AssertionError(f"missing {sub} outputs")
-        envs = os.path.join(out_root, "customdb", "drive", "envmap")
-        if sorted(os.listdir(envs)) != names:
-            raise AssertionError("missing envmap outputs")
-        masses = [float(np.load(os.path.join(rain, "rain_mask", n)).sum())
-                  for n in names]
-        sats = [float(np.load(os.path.join(rain, "saturation_mask",
-                                           n)).astype(np.float64).sum())
-                for n in names]
-        phase(f"[cli] mask mass per frame min {min(masses):.2f} max "
-              f"{max(masses):.2f}; saturation (uint8 sum) min {min(sats)}")
-        if not min(masses) > 0:
-            raise AssertionError("a frame rendered no rain")
+        kinds = check_cli_run("cli", rc, stats, launches, carried,
+                              blur_launches, CLI_FRAMES, CLI_BATCH)
+        if not kinds["k1"] == kinds["k2"] == kinds["k3"]:
+            raise AssertionError(f"the CLI path's launches {kinds}: every "
+                                 "launch must carry K1's and K2's windows")
+        check_outputs("cli", out_root, CLI_FALLRATE, CLI_FRAMES)
 
     # Frames 0-1 of the first batch against the CPU render of the same
     # drops and texture picks.
-    (bg, depth, drops, tex, edges, cfg), kw, out = first["call"]
-    sub = slice(0, 2)
-    ref = frame.render_frames(
-        bg[sub].cpu(), depth[sub].cpu(), drops.map(lambda t: t[sub].cpu()),
-        tex.to("cpu"), edges.cpu(), cfg, tex_idx=kw["tex_idx"][sub].cpu())
-    for name in ("rain_mask", "rainy_image", "saturation_mask", "envmap"):
-        d = (getattr(out, name)[sub].cpu() - getattr(ref, name)).abs()
-        far = (d > RENDER_FAR).float().mean().item()
-        phase(f"[cli] GPU vs CPU {name} (frames 0-1): max {d.max():.3g} "
-              f"mean {d.mean():.3g}; share off by > {RENDER_FAR:g}: "
-              f"{far:.3g}")
-        if d.max().item() > RENDER_MAX_ABS or far > RENDER_MAX_FAR_FRACTION:
-            raise AssertionError(f"GPU {name} disagrees with the CPU render")
+    (bg, depth, drops, tex, edges, cfg), kw, out = call
+    ref = cpu_render((bg, depth, drops, tex, edges), cfg, kw)
+    compare_with_cpu("cli", out, ref, ("rain_mask", "rainy_image",
+                                       "saturation_mask", "envmap"))
     phase(f"[cli] img_per_s {stats.get('img_per_s')} (the job's own wall "
           f"clock, kernel builds done, disk writes included) on {smi}")
-    return dict(k1=k1, k2=k2, k3=k3, k4=blur_launches), first["call"]
+    return kinds, call
+
+
+def _ladder(raster):
+    return [(b.ph, b.pw, b.radius, b.capacity, b.ranks) for b in
+            raster.buckets]
+
+
+def offline_phase(dev, smi):
+    """The offline CLI path on the card, end to end: the simulation tool
+    writes the missing particle XML, the native parser reads it (and the
+    .npz cache is written), the ladder is fitted to the first 8 frames,
+    and every batch renders in one raster and one blur launch."""
+    fits, tool_s = [], []
+    fit, simulate = pipeline.fit_raster_config, \
+        particles_simulation.simulate_to_xml
+
+    def record_fit(sample, *args):
+        raster = fit(sample, *args)
+        fits.append((sample, args, raster))
+        return raster
+
+    def timed_tool(*args, **kw):
+        t0 = time.perf_counter()
+        path = simulate(*args, **kw)
+        torch.cuda.synchronize()
+        tool_s.append(time.perf_counter() - t0)
+        return path
+
+    parses = dict(xml_io.parse_particles_xml_raw.parses)
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_dataset(tmp)
+        out_root = os.path.join(tmp, "output")
+        argv = ["--dataset", "customdb", "-k", os.path.join(tmp, "source"),
+                "-d", os.path.join(tmp, "source"), "--output", out_root,
+                "-r", os.path.join(tmp, "particles"),
+                "--intensity", str(CLI_FALLRATE),
+                "--raster_profile", "fitted",
+                "--batch_size", str(CLI_BATCH), "--save_format", "npy",
+                "--save_saturation", "--save_envmap",
+                "--frame_end", str(CLI_FRAMES), "--noverbose",
+                "--device", str(dev)]
+        pipeline.fit_raster_config = record_fit
+        particles_simulation.simulate_to_xml = timed_tool
+        try:
+            rc, stats, call, launches, carried, blur_launches, wall = \
+                run_cli(argv)
+        finally:
+            pipeline.fit_raster_config = fit
+            particles_simulation.simulate_to_xml = simulate
+        native_parses = (xml_io.parse_particles_xml_raw.parses["native"]
+                         - parses["native"])
+        xml = os.path.join(tmp, "particles", "customdb", "drive", "rain",
+                           f"{CLI_FALLRATE}mm", "0000_camera0.xml")
+        phase(f"[offline] rc {rc}; stats {stats}; wall {wall:.2f} s (tool "
+              f"{sum(tool_s):.2f} s); raster launches {launches}, by the "
+              f"windows each carried {carried}; blur launches "
+              f"{blur_launches}; native parses {native_parses}")
+        if not (len(tool_s) == 1 and os.path.exists(xml)):
+            raise AssertionError(f"the tool did not write {xml}")
+        if native_parses != 1:
+            raise AssertionError("the native parser did not read the XML")
+        if not os.path.exists(xml + ".npz"):
+            raise AssertionError("the .npz cache was not written")
+        kinds = check_cli_run("offline", rc, stats, launches, carried,
+                              blur_launches, CLI_FRAMES, CLI_BATCH)
+        check_outputs("offline", out_root, CLI_FALLRATE, CLI_FRAMES)
+
+        size = os.path.getsize(xml)
+        t0 = time.perf_counter()
+        streaks = xml_io.load_streaks(xml, (W, H), use_cache=False)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        xml_io.load_streaks(xml, (W, H))
+        cached_s = time.perf_counter() - t0
+        per_frame = np.array([len(r["ip1"]) for r in streaks.values()])
+        ms = {}
+        for name, native in (("native", True), ("python", False)):
+            t0 = time.perf_counter()
+            frames = xml_io.parse_particles_xml_raw(xml, prefer_native=native)
+            ms[name] = (time.perf_counter() - t0) * 1e3 / len(frames)
+        phase(f"[offline] tool wall {tool_s[0]:.2f} s; XML {size / 1e6:.2f} "
+              f"MB, {len(streaks)} frames, drops per frame (after the "
+              f"in-frame cull) mean {per_frame.mean():.1f} max "
+              f"{per_frame.max()}; parse ms per frame native "
+              f"{ms['native']:.4f}, Python {ms['python']:.4f}; "
+              f"load_streaks {load_s:.3f} s (native parse, finalize, cull)"
+              f", from the .npz cache {cached_s:.3f} s")
+
+    sample, args, raster = fits[0]
+    cpu_raster = rasterize.fit_raster_config(sample.to("cpu"), *args)
+    phase(f"[offline] fitted ladder (ph, pw, radius, capacity, ranks) on "
+          f"the card: {_ladder(raster)}; on the CPU from the same sample: "
+          f"{_ladder(cpu_raster)}")
+    if cpu_raster != raster:
+        card = rasterize.fit_needs(sample, *args)
+        host = rasterize.fit_needs(sample.to("cpu"), *args)
+        v = sample.valid.cpu()
+        for name, a, b in zip(("nw", "nh", "s4"), card, host):
+            d = (a.cpu() - b).abs()[v]
+            phase(f"[offline] the ladders differ: {name} differs for "
+                  f"{int((d > 0).sum())} of {int(v.sum())} drops "
+                  f"(max {d.max().item():.3g})")
+    multi = [(b.ph, b.pw) for b in raster.buckets
+             if tpu_tiles(b.ph, b.pw) > 1]
+    phase(f"[offline] fitted rungs multi-tile in the JAX plan (K2): "
+          f"{multi or 'none'}")
+
+    (bg, depth, drops, tex, edges, cfg), kw, out = call
+    ref = cpu_render((bg, depth, drops, tex, edges), cfg, kw)
+    compare_with_cpu("offline", out, ref, ("rain_mask", "rainy_image",
+                                           "saturation_mask", "envmap"))
+    render_ms = median_ms(lambda: frame.render_frames(
+        bg, depth, drops, tex, edges, cfg, **kw))
+    phase(f"[offline] render_frames of the first batch ({CLI_BATCH} "
+          f"frames, capacity {drops.capacity}): {render_ms:.3f} ms, on "
+          f"{smi}")
+    phase(f"[offline] img_per_s {stats.get('img_per_s')} (the job's own "
+          f"wall clock, the XML parse and the ladder fit included) on "
+          f"{smi}")
+    return kinds, call
+
+
+def _pano(dev):
+    """A synthetic 375x1242 panorama batch: smooth colored gradients."""
+    yy = torch.linspace(0, 1, H, device=dev)[:, None]
+    xx = torch.linspace(0, 1, W, device=dev)[None, :]
+    one = torch.stack([0.2 + 0.7 * yy * torch.ones_like(xx),
+                       0.5 + 0.4 * torch.sin(6.0 * xx) * (1 - yy),
+                       0.9 - 0.6 * xx * torch.ones_like(yy)], -1)
+    return one.expand(CLI_BATCH, H, W, 3).contiguous()
+
+
+def regimes_phase(call, k1_ms, smi):
+    """The render options on one KITTI-size batch of 8 of the offline
+    run's drops: each regime's raster operands against the plain version
+    and two launches bit-identical, then the regime's render on the card
+    against the CPU render of frames 0-1."""
+    (bg, depth, drops, tex, edges, cfg), kw, _ = call
+    tex_hw = tuple(tex.raw.shape[1:])
+    dev = bg.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    noise = torch.randn(drops.valid.shape, generator=gen, device=dev)
+    regimes = {
+        "fitted": ({}, {}),
+        "white": ({"rendering_strategy": "white"}, {}),
+        "naive_db": ({"rendering_strategy": "naive_db"}, {}),
+        "noise": ({"noise_scale": 1.0, "noise_std": 1.0},
+                  {"noise_deg": noise}),
+        "pano": ({"env_type": "pano"}, {"pano": _pano(dev)}),
+    }
+    cfgs = {}
+    for name, (options, _) in regimes.items():
+        settings = dataclasses.replace(cfg.settings, **options)
+        # Each regime's ladder fitted to its own needs, as its job would.
+        cfgs[name] = dataclasses.replace(
+            cfg, settings=settings, raster=rasterize.fit_raster_config(
+                drops, tex_hw, cfg.image_wh, settings))
+        phase(f"[regimes] {name}: ladder {_ladder(cfgs[name].raster)}")
+
+    # The regimes' renders on the card: counts set to 0 just before.
+    reset_counts()
+    outs = {name: frame.render_frames(
+                bg, depth, drops, tex, edges, cfgs[name],
+                tex_idx=kw["tex_idx"], **extra)
+            for name, (_, extra) in regimes.items() if name != "fitted"}
+    torch.cuda.synchronize()
+    launches = fused_raster.fused_raster_composite.launches
+    carried = dict(fused_raster.fused_raster_composite.carried)
+    blur_launches = blur_kernel.separable_blur.launches
+    phase(f"[regimes] renders: raster launches {launches} by the windows "
+          f"each carried {carried}; blur launches {blur_launches}")
+    if not launches == blur_launches == len(outs):
+        raise AssertionError("each regime's render must launch the raster "
+                             "and the blur kernel once")
+    k1, k2, k3 = launch_kinds(carried)
+
+    worst = worst_multi = 0.0
+    n_planes = N_PLANES_SAT if cfg.compute_saturation_mask else N_PLANES
+    for name, (_, extra) in regimes.items():
+        if name == "pano":
+            continue   # the pano changes the colors, not the operands
+        c = cfgs[name]
+        _, env, _ = frame.frame_background(bg, depth, c)
+        prep, _ = frame.drop_fused_params(env, drops, tex, edges, c,
+                                          tex_idx=kw["tex_idx"],
+                                          noise_deg=extra.get("noise_deg"))
+        rungs = frame.kernel_rungs(prep, c)
+        err = against_plain("regimes", f"{name} operands", rungs,
+                            c.image_hw, tex_hw, n_planes)
+        first = fused_raster.fused_raster_composite(rungs, c.image_hw,
+                                                    tex_hw, n_planes)
+        second = fused_raster.fused_raster_composite(rungs, c.image_hw,
+                                                     tex_hw, n_planes)
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"two launches on the {name} operands "
+                                 "differ")
+        ms = event_ms(lambda: fused_raster.fused_raster_composite(
+            rungs, c.image_hw, tex_hw, n_planes), 10)
+        bnd, by, px = raster_bound(rungs, c.image_hw, n_planes)
+        phase(f"[regimes] {name}: two launches bit-identical; raster "
+              f"{ms:.4f} ms ({n_planes} planes, batch {CLI_BATCH}; bound "
+              f"{bnd:.4f} ms, {by}, {px} window px) beside the bench rungs' "
+              f"{k1_ms:.4f} ms (5 planes, batch {BATCH}), on {smi}")
+        worst = max(worst, err)
+        if any(tpu_tiles(*r.patch_hw) > 1 for r in rungs):
+            worst_multi = max(worst_multi, err)
+    for name, out in outs.items():
+        extra = regimes[name][1]
+        ref = cpu_render((bg, depth, drops, tex, edges), cfgs[name],
+                         dict(tex_idx=kw["tex_idx"], **extra))
+        compare_with_cpu(f"regimes {name}", out, ref,
+                         ("rain_mask", "rainy_image", "saturation_mask",
+                          "envmap"))
+    return dict(k1=k1, k2=k2, k3=k3, k4=blur_launches, max_abs_err=worst,
+                multi_err=worst_multi)
+
+
+def export_phase(dev):
+    """A 4-frame online run with --export_xml (batch 2): the written XML
+    re-parsed by load_streaks holds each frame's valid simulated drops."""
+    jobs = []
+    run = OnlineRenderJob.run
+
+    def keep(self):
+        jobs.append(self)
+        return run(self)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_dataset(tmp, 4)
+        particles = os.path.join(tmp, "particles")
+        argv = ["--dataset", "customdb", "-k", os.path.join(tmp, "source"),
+                "-d", os.path.join(tmp, "source"),
+                "--output", os.path.join(tmp, "output"), "-r", particles,
+                "--online", "--export_xml", "--intensity", str(CLI_FALLRATE),
+                "--batch_size", "2", "--save_format", "npy", "--noverbose",
+                "--device", str(dev)]
+        OnlineRenderJob.run = keep
+        try:
+            rc = cli.main(argv)
+        finally:
+            OnlineRenderJob.run = run
+        xml = os.path.join(particles, "customdb", "drive", "rain",
+                           f"{CLI_FALLRATE}mm", "0000_camera0.xml")
+        # Read back at the simulation's own image size, as the offline
+        # mode reads a KITTI-size file.
+        streaks = xml_io.load_streaks(xml, jobs[0]._sim_cfg.image_wh,
+                                      use_cache=False)
+        got = [len(streaks[i]["ip1"]) for i in range(4)]
+        want = [int(jobs[0]._drops_for_frame(i).count()) for i in range(4)]
+        phase(f"[export] rc {rc}; {xml.replace(tmp, '<tmp>')} "
+              f"{os.path.getsize(xml) / 1e6:.2f} MB; drops per frame read "
+              f"back {got}, simulated {want}")
+        if rc != 0 or got != want or not min(got) > 0:
+            raise AssertionError("the exported XML does not hold each "
+                                 "frame's simulated drops")
 
 
 def cli_stages_phase(call, smi):
@@ -776,18 +1122,6 @@ def cli_stages_phase(call, smi):
     def render():
         return frame.render_frames(bg, depth, drops, tex, edges, cfg,
                                    tex_idx=tex_idx)
-
-    def median_ms(fn):
-        times = []
-        for _ in range(6):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return float(np.median(times[1:]))
 
     def raster_rung(i):
         rung = frame.kernel_rungs(state["prep"][0], cfg)[i]
@@ -839,51 +1173,68 @@ def cli_stages_phase(call, smi):
           f"{device_ms:.3f} ms, device busy share {busy}, on {smi}")
 
 
+def timed(fn, *args):
+    """fn(*args), its wall time printed after it."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    phase(f"[time] {fn.__name__}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> None:
-    smi = device_phase()
-    build_phase()
+    t_start = time.perf_counter()
+    smi = timed(device_phase)
+    timed(build_phase)
     dev = torch.device("cuda", 0)
-    data = workload_phase(dev)
-    rungs, max_err, all_err = kernel_phase(*data)
-    launches, blur_launches = render_phase(*data)
-    k1 = timing_phase(*data, rungs, smi)
+    data = timed(workload_phase, dev)
+    rungs, max_err, all_err = timed(kernel_phase, *data)
+    launches, blur_launches = timed(render_phase, *data)
+    k1 = timed(timing_phase, *data, rungs, smi)
     k1_bound, k1_by, k1_px = raster_bound(rungs, (H, W), 5)
     phase(f"[timing] all rungs: bound {k1_bound:.4f} ms ({k1_by}; {k1_px} "
           "window px)")
-    blur = blur_phase(dev, smi)
-    k2 = multitile_phase(dev, smi)
-    determinism_phase(rungs, k2["rungs"], tuple(data[5].raw.shape[1:]),
-                      k2["tex_hw"])
-    cli_launches, cli_call = cli_phase(dev, smi)
-    cli_stages_phase(cli_call, smi)
+    blur = timed(blur_phase, dev, smi)
+    k2 = timed(multitile_phase, dev, smi)
+    timed(determinism_phase, rungs, k2["rungs"],
+          tuple(data[5].raw.shape[1:]), k2["tex_hw"])
+    cli_launches, cli_call = timed(cli_phase, dev, smi)
+    timed(cli_stages_phase, cli_call, smi)
+    offline_launches, offline_call = timed(offline_phase, dev, smi)
+    regimes = timed(regimes_phase, offline_call, k1["ms"], smi)
+    timed(export_phase, dev)
+    phase(f"[time] all phases: {time.perf_counter() - t_start:.2f} s")
     raster = dict(name="fused_raster", route="cuda", source=KERNEL_SOURCE,
                   plain_ms=k1["plain_ms"], bound_ms=k1_bound,
                   bound_by=k1_by, library_ms=None)
 
-    def by_path(bench, cli_run):
-        """Launches of the bench render and of the CLI run, and their
-        sum."""
-        return {"launches": bench + cli_run,
-                "launches_by_path": {"bench": bench, "cli": cli_run}}
+    def by_path(kind, bench):
+        """Launches of the bench render, the online CLI run, the offline
+        CLI run and the regimes' renders that carried ``kind``, and
+        their sum."""
+        paths = {"bench": bench, "cli": cli_launches[kind],
+                 "offline": offline_launches[kind],
+                 "regimes": regimes[kind]}
+        return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     # K1 and K3 are one launch of the same kernel on the bench path (K1's
     # windows, all rungs at once); their time is that launch's.
     print(f"[device] nvidia-smi: {smi}", flush=True)
     print(json.dumps({"kernels": [
-        {**raster, "replaces": KERNEL_REPLACES,
-         **by_path(launches, cli_launches["k1"]), "max_abs_err": max_err,
+        {**raster, "replaces": KERNEL_REPLACES, **by_path("k1", launches),
+         "max_abs_err": max(max_err, regimes["max_abs_err"]),
          "ms": k1["ms"]},
         {**raster, "name": "fused_raster_multitile",
-         "replaces": K2_REPLACES, **by_path(0, cli_launches["k2"]),
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"]},
+         "replaces": K2_REPLACES, **by_path("k2", 0),
+         "max_abs_err": max(k2["max_abs_err"], regimes["multi_err"]),
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"]},
         {**raster, "name": "fused_raster_resident",
-         "replaces": K3_REPLACES, **by_path(launches, cli_launches["k3"]),
-         "max_abs_err": max(all_err, k2["all_rungs_err"]), "ms": k1["ms"]},
+         "replaces": K3_REPLACES, **by_path("k3", launches),
+         "max_abs_err": max(all_err, k2["all_rungs_err"],
+                            regimes["max_abs_err"]), "ms": k1["ms"]},
         {"name": "separable_blur", "route": "cuda", "source": BLUR_SOURCE,
-         "replaces": BLUR_REPLACES,
-         **by_path(blur_launches, cli_launches["k4"]), **blur}]}))
+         "replaces": BLUR_REPLACES, **by_path("k4", blur_launches),
+         **blur}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

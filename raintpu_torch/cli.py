@@ -1,26 +1,36 @@
 """Command-line interface of the PyTorch port.
 
     python -m raintpu_torch.cli --dataset customdb --intensity 10,50 \\
-        --online [--device cuda|cpu] [--save_saturation] [--save_envmap] ...
+        [--online [--export_xml]] [--device cuda|cpu] [--save_saturation]
+        [--save_envmap] [--raster_profile default|fitted|tiny] ...
 
 The flags of the JAX package's CLI (``raintpu.cli``, itself
 flag-compatible with the reference ``main.py``), plus ``--device``: the
-job renders on the CUDA card unless ``--device cpu`` is given. Only the
-online mode is ported: drops are simulated on the device
-(``--online``). The offline mode, which reads (or first simulates) the
-reference's particle XML files, and ``--export_xml`` wait for the port
-of ``particles/xml_io.py`` and raise NotImplementedError.
+job renders on the CUDA card unless ``--device cpu`` is given. Without
+``--online`` the job reads the reference's particle XML files
+(``PARTICLES/DATASET/SEQ/rain/{N}mm/*_camera0.xml``), first simulating
+the missing ones with :mod:`raintpu_torch.tools.particles_simulation`
+on the same device; with ``--online`` drops are simulated per frame on
+the device, and ``--export_xml`` also writes them as XML files in that
+layout.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 import sys
 from types import SimpleNamespace
 
 from raintpu_torch.data import db
 from raintpu_torch.utils.logging import print_warning
+
+
+def particles_glob(path: str, weather: dict) -> str:
+    """Per-weather XML search pattern (reference my_utils.py:172-173)."""
+    return os.path.join(path, weather["weather"],
+                        f'{weather["fallrate"]}mm', "*_camera0.xml")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,8 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--raster_profile", type=str, default="default",
                    choices=("default", "fitted", "tiny"),
-                   help="Bucket ladder: 'default' (fixed 4 rungs) or "
-                        "'tiny' (tests); 'fitted' is not ported yet")
+                   help="Bucket ladder: 'default' (fixed 4 rungs), "
+                        "'fitted' (fitted to the weather's first 8 frames "
+                        "of drops) or 'tiny' (tests)")
     p.add_argument("--cone_downsample", type=int, default=4,
                    help="Block-reduction of the cone-photometry envmap "
                         "features; 1 = exact")
@@ -100,8 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_args(argv):
     """Parse + resolve everything up to a runnable JobSpec: streak-DB
-    checks, plugin path resolution and sequence validation, in the
-    reference's order (main.py:127-222)."""
+    checks, plugin path resolution, sequence validation and particle-file
+    resolution with simulation of the missing files, in the reference's
+    order (main.py:127-222)."""
     args = build_parser().parse_args(argv)
     if args.force_particles and args.conflict_strategy == "skip":
         raise SystemExit(
@@ -163,12 +175,40 @@ def check_args(argv):
             valid_seqs.append(seq)
     print(f"{len(valid_seqs)} valid sequence(s)")
 
-    if not args.online:
-        raise NotImplementedError(
-            "raintpu_torch renders with --online only: the particle XML "
-            "path (particles/xml_io.py and its simulation tool) is not "
-            "ported yet")
-    particles = {seq: [None] * len(weather) for seq in valid_seqs}
+    # Resolve particle simulations.
+    particles_root = os.path.join(args.particles, args.dataset)
+    particles = {}
+    if args.online:
+        particles = {seq: [None] * len(weather) for seq in valid_seqs}
+    else:
+        sims_to_run = []
+        sim_specs = {}
+        for seq in valid_seqs:
+            sim_specs[seq] = db.sim(args.dataset, seq, particles_root)
+            missing = [w for w in weather
+                       if not glob.glob(particles_glob(
+                           sim_specs[seq]["path"], w))
+                       or args.force_particles]
+            if missing:
+                sims_to_run.append({"path": [sim_specs[seq]["path"]],
+                                    "options": [sim_specs[seq]["options"]],
+                                    "weather": missing})
+        if sims_to_run:
+            print(f" {len(sims_to_run)} particle simulation(s) to compute "
+                  f"— running the simulator on {args.device}...")
+            from raintpu_torch.tools import particles_simulation
+            for spec in sims_to_run:
+                particles_simulation.process(spec, force_recompute=True,
+                                             device=args.device)
+        for seq in valid_seqs:
+            try:
+                particles[seq] = [
+                    glob.glob(particles_glob(sim_specs[seq]["path"], w))[0]
+                    for w in weather]
+            except IndexError:
+                print_warning(
+                    f"No particle file for sequence {seq}; skipping it.")
+    valid_seqs = [s for s in valid_seqs if s in particles]
 
     return SimpleNamespace(
         args=args, settings=settings, sequences=valid_seqs,
@@ -180,8 +220,11 @@ def main(argv=None) -> int:
     ns = check_args(sys.argv[1:] if argv is None else argv)
     a = ns.args
 
-    from raintpu_torch.render.online import OnlineRenderJob
-    from raintpu_torch.render.pipeline import JobSpec
+    from raintpu_torch.render.pipeline import JobSpec, RenderJob
+    if a.online:
+        from raintpu_torch.render.online import OnlineRenderJob as Job
+    else:
+        Job = RenderJob
 
     spec = JobSpec(
         dataset=a.dataset, sequences=ns.sequences, images=ns.images,
@@ -200,9 +243,14 @@ def main(argv=None) -> int:
         seed=a.seed, raster_profile=a.raster_profile,
         cone_downsample=a.cone_downsample, save_format=a.save_format,
         device=a.device)
-    job = OnlineRenderJob(spec)
-    job.export_xml = a.export_xml
+    job = Job(spec)
+    if a.online and a.export_xml:
+        job.export_xml = True
     stats = job.run()
+    if a.online and a.export_xml:
+        for path in job.finish_export(
+                os.path.join(a.particles, a.dataset)):
+            print(f"Exported particle XML: {path}")
     print(f"\nDone: {stats}")
     return 0
 

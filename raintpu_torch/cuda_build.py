@@ -1,11 +1,13 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's native sources and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at
-first use (or all at once by :func:`build_all`, one nvcc per source in
-parallel) into ``raintpu_torch/_build/<name>-<hash>.so``, where the hash
-covers the source and the compiler flags, so an edited source rebuilds
-and an unchanged one loads the library already built. Nothing here
-includes PyTorch's headers: a build takes seconds.
+Each ``csrc/<name>.cu`` (a CUDA kernel, built by nvcc) or
+``csrc/<name>.cc`` (host C++, the particle-XML parser, built by g++)
+exposes a plain C interface and is compiled at first use (or all at
+once by :func:`build_all`, one compiler per source in parallel) into
+``raintpu_torch/_build/<name>-<hash>.so``, where the hash covers the
+source and the compiler flags, so an edited source rebuilds and an
+unchanged one loads the library already built. Nothing here includes
+PyTorch's headers: a build takes seconds.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # order of their float sums (see ops.fused_raster).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 _loaded = {}
 
@@ -40,20 +43,38 @@ def nvcc_path() -> str:
     raise FileNotFoundError("nvcc not found (set CUDA_HOME)")
 
 
+def _source(name: str) -> Path:
+    """csrc/<name>.cu, else csrc/<name>.cc."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cc"
+
+
+def _compiler(src: Path):
+    if src.suffix == ".cu":
+        return [nvcc_path(), *NVCC_FLAGS]
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise FileNotFoundError("g++ not found")
+    return [gxx, *GXX_FLAGS]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = _source(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its library is already built."""
+    """Compile csrc/<name>.cu (or .cc) unless its library is built."""
     return build_all([name])[0]
 
 
 def build_all(names) -> list:
-    """Compile every csrc/<name>.cu not built yet, one nvcc process per
-    source, all started together. Returns the libraries' paths."""
+    """Compile every source of ``names`` not built yet, one compiler
+    process per source, all started together. Returns the libraries'
+    paths."""
     outs = [library_path(name) for name in names]
     jobs = []
     for name, out in zip(names, outs):
@@ -61,8 +82,8 @@ def build_all(names) -> list:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        src = _source(name)
+        cmd = [*_compiler(src), "-o", str(tmp), str(src)]
         jobs.append((cmd, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -70,7 +91,7 @@ def build_all(names) -> list:
     for cmd, tmp, out, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}):\n"
+            failed.append(f"build failed ({proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{log}")
         else:
             os.replace(tmp, out)
@@ -80,7 +101,7 @@ def build_all(names) -> list:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu, once per process."""
+    """Build (if needed) and load csrc/<name>, once per process."""
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build(name)))
     return _loaded[name]

@@ -10,7 +10,8 @@ The port's copy of ``raintpu.data.db``: the reference's plugin contract
 Plugins are searched in order:
 1. a user ``config.<name>`` module on sys.path — so config plugins
    written against the reference work unchanged;
-2. ``raintpu_torch.data.datasets.<name>`` (built-ins: kitti, customdb).
+2. ``raintpu_torch.data.datasets.<name>`` (built-ins: kitti, customdb,
+   cityscapes).
 
 Settings keys and semantics are identical to the reference defaults
 (``common/db.py:8-70``); per-sequence overrides are selected by regex

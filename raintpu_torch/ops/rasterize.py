@@ -25,6 +25,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from raintpu_torch.ops.fused_raster import (N_PARAMS, P_ADDB, P_ADDG,
@@ -594,6 +595,141 @@ def raster_params_frame(drops: DropBatch,
             ayc=ayc.contiguous(), bxc=bxc.contiguous(), drop_idx=idx,
             valid=sel_valid, overflow=overflow.to(torch.int32)))
     return out
+
+
+def _fit_series(ph: int, radius: int) -> Tuple[int, int, int]:
+    """(modes_y, modes_x, ranks) series truncation for a fitted rung:
+    small patches carry no high-frequency content worth evaluating,
+    heavily defocused big ones have their high modes damped to ~0, and
+    the SVD rank axis is energy-ordered (the JAX package's choice,
+    ``raintpu/ops/rasterize.py:949``)."""
+    if ph <= 48:
+        return 12, 6, 3
+    if radius >= 16:
+        return 16, 8, 4
+    return 24, 10, 4
+
+
+# The fitted ladder's rungs sit at these quantiles of the sampled
+# population, plus a tail rung over the sampled max times FIT_TAIL_MARGIN;
+# capacities are the per-frame max occupancy times FIT_HEADROOM plus
+# FIT_SLACK (the JAX package's defaults).
+FIT_QUANTILES = (0.78, 0.95, 0.995)
+FIT_HEADROOM = 1.3
+FIT_SLACK = 16
+FIT_TAIL_MARGIN = 1.15
+
+
+def fit_needs(drops: DropBatch, tex_hw, image_wh, settings):
+    """Each drop's needed window (content + 4-sigma blur spill, the
+    ``_route_buckets`` formula) and 4 sigma, as (nw, nh, s4) tensors
+    shaped like ``drops.valid``, on the drops' device. With streak noise
+    the needs are the largest over noise 0 and +-3 noise std."""
+    cam = settings.camera
+    physics = settings.rendering_strategy is None
+    noise_max = 3.0 * float(settings.noise_std) * float(settings.noise_scale)
+
+    def needs_at(noise_deg):
+        g = drop_geometry(
+            drops, tuple(tex_hw), tuple(image_wh), focal_m=cam.focal_m,
+            f_number=cam.f_number, focus_plane=settings.focus_plane,
+            coc_pixsize=4.65e-6, apply_defocus=physics,
+            noise_deg=torch.full_like(drops.iw1, noise_deg))
+        spill = torch.floor(4.0 * g.sigma + 0.5)
+        return (g.content_wh[..., 0] + 2.0 * spill,
+                g.content_wh[..., 1] + 2.0 * spill, 4.0 * g.sigma)
+
+    nw, nh, s4 = needs_at(0.0)
+    if noise_max > 0.0:
+        for nz in (-noise_max, noise_max):
+            nw2, nh2, s42 = needs_at(nz)
+            nw = torch.maximum(nw, nw2)
+            nh = torch.maximum(nh, nh2)
+            s4 = torch.maximum(s4, s42)
+    return nw, nh, s4
+
+
+def fit_raster_config(drops: DropBatch, tex_hw, image_wh,
+                      settings) -> RasterConfig:
+    """Fit a bucket ladder to a sampled drop population.
+
+    ``drops``: a batched (B, N) DropBatch sample; its needs
+    (:func:`fit_needs`) are computed on its device, the ladder from them
+    on the host with numpy, as the JAX package's ``fit_raster_config``
+    does, so both give the same ladder. Rungs go at population quantiles
+    (FIT_QUANTILES), widths snap out to their cost-free bounds, rungs an
+    equal-or-bigger earlier rung would shadow are dropped, and each
+    rung's capacity covers the sample's per-frame occupancy under
+    first-fit routing. The last rung covers the sampled max times
+    FIT_TAIL_MARGIN (drops beyond it are clipped to it; the overflow
+    counters still fire on capacity misfits). ``settings``: a
+    RenderSettings (camera, focus_plane, rendering_strategy, noise).
+    An empty sample gives the default ladder at capacity 64.
+    """
+    nw, nh, s4 = (t.cpu().numpy()
+                  for t in fit_needs(drops, tex_hw, image_wh, settings))
+    v = drops.valid.cpu().numpy().astype(bool)
+    if not v.any():
+        return RasterConfig(buckets=RasterConfig.default(64).buckets)
+    nwv, nhv, s4v = nw[v], nh[v], s4[v]
+
+    def rung(q):
+        if q >= 1.0:
+            ph_raw = float(nhv.max()) * FIT_TAIL_MARGIN
+            pw_raw = float(nwv.max()) * FIT_TAIL_MARGIN
+            r = int(np.ceil(s4v.max() * FIT_TAIL_MARGIN))
+        else:
+            ph_raw = float(np.quantile(nhv, q))
+            pw_raw = float(np.quantile(nwv, q))
+            r = int(np.ceil(np.quantile(s4v, q)))
+        r = max(r, 2)
+        ph = int(-(-max(ph_raw, 8.0) // 8) * 8)
+        # Width snapping (cost-free widening on the TPU). LANE=128 and
+        # the bounds mirror ops/pallas/fused_kernel + render/frame's
+        # strip/pair eligibility: pad = 1.25*radius + 2.
+        # The PAIR bound (64 - 2*pad) comes first: a rung at or under
+        # it evaluates two drops per series eval (the kernel's VPU
+        # roofline), so widening past it is NOT free — only widening
+        # up to it, or between it and the strip bound, is.
+        pad = int(1.25 * r) + 2
+        pair_bound = 64 - 2 * pad
+        strip_bound = 128 - 2 * pad
+        if pw_raw <= pair_bound:
+            pw = pair_bound
+        elif pw_raw <= strip_bound:
+            pw = strip_bound
+        else:
+            pw = int(-(-pw_raw // 128) * 128)
+        return ph, pw, r
+
+    rungs = [rung(q) for q in FIT_QUANTILES + (1.0,)]
+    # Deduplicate: keep a rung only if it is strictly smaller than the
+    # next in some dimension (first-fit makes an equal-or-bigger
+    # earlier rung shadow the later one).
+    kept = []
+    for i, rg in enumerate(rungs):
+        if i + 1 < len(rungs):
+            nxt = rungs[i + 1]
+            if rg[0] >= nxt[0] and rg[1] >= nxt[1] and rg[2] >= nxt[2]:
+                continue
+        if kept and kept[-1] == rg:
+            continue
+        kept.append(rg)
+
+    # First-fit routing (the _route_buckets formula) -> per-frame max
+    # occupancy -> capacities.
+    bid = np.full(nw.shape, len(kept) - 1, np.int32)
+    for bi in range(len(kept) - 2, -1, -1):
+        ph, pw, r = kept[bi]
+        fit = (nw <= pw) & (nh <= ph) & (s4 <= r)
+        bid = np.where(fit, bi, bid)
+    specs = []
+    for bi, (ph, pw, r) in enumerate(kept):
+        occ = int(((bid == bi) & v).sum(axis=1).max())
+        cap = max(8, int(occ * FIT_HEADROOM) + FIT_SLACK)
+        cap = int(-(-cap // 8) * 8)
+        specs.append(BucketSpec(ph, pw, r, cap, *_fit_series(ph, r)))
+    return RasterConfig(buckets=tuple(specs))
 
 
 def fill_blend_rows(rung: RungParams, lo: torch.Tensor,

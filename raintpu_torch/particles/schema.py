@@ -171,11 +171,24 @@ def cull_to_frame(rec: dict, image_wh) -> dict:
     return {k: v[keep] for k, v in rec.items()}
 
 
-def pack_drop_batch(rec: dict, capacity: int, device=None) -> DropBatch:
-    """Pad a host record dict into a fixed-capacity DropBatch on
-    ``device`` (None: the CUDA card; the widest drops are kept when
-    over capacity)."""
-    device = resolve_device(device)
+def _empty_arrays(capacity: int) -> dict:
+    """The fields of a frame with no drop, as numpy arrays (the JAX
+    package's ``empty_drop_batch``)."""
+    def zeros(*trailing, dtype=np.float32):
+        return np.zeros((capacity,) + trailing, dtype)
+
+    return dict(ip1=zeros(2), ip2=zeros(2), iw1=zeros(), iw2=zeros(),
+                wp1=zeros(3), wp2=zeros(3), max_width=zeros(dtype=np.int32),
+                length=zeros(dtype=np.int32), ratio=zeros(),
+                drop_type=np.full((capacity,), TYPE_SMALL, np.int32),
+                valid=zeros(dtype=bool))
+
+
+def _packed_arrays(rec: Optional[dict], capacity: int) -> dict:
+    """A host record padded to ``capacity`` as numpy arrays (the widest
+    drops are kept when over capacity); None gives an empty frame."""
+    if rec is None:
+        return _empty_arrays(capacity)
     n = len(rec["ip1"])
     if n > capacity:
         order = np.argsort(-rec["max_width"], kind="stable")[:capacity]
@@ -185,14 +198,37 @@ def pack_drop_batch(rec: dict, capacity: int, device=None) -> DropBatch:
     def pad(a, fill=0):
         out = np.full((capacity,) + a.shape[1:], fill, a.dtype)
         out[:n] = a
-        return torch.as_tensor(out, device=device)
+        return out
 
-    valid = np.zeros((capacity,), bool)
-    valid[:n] = True
-    return DropBatch(
-        ip1=pad(rec["ip1"]), ip2=pad(rec["ip2"]),
-        iw1=pad(rec["iw1"]), iw2=pad(rec["iw2"]),
-        wp1=pad(rec["wp1"]), wp2=pad(rec["wp2"]),
-        max_width=pad(rec["max_width"]), length=pad(rec["length"], 1),
-        ratio=pad(rec["ratio"]), drop_type=pad(rec["drop_type"]),
-        valid=torch.as_tensor(valid, device=device))
+    out = {k: pad(rec[k], 1 if k == "length" else 0)
+           for k in ("ip1", "ip2", "iw1", "iw2", "wp1", "wp2", "max_width",
+                     "length", "ratio", "drop_type")}
+    out["valid"] = np.arange(capacity) < n
+    return out
+
+
+def _on_device(arrays: dict, device) -> DropBatch:
+    device = resolve_device(device)
+    return DropBatch(**{k: torch.as_tensor(v, device=device)
+                        for k, v in arrays.items()})
+
+
+def empty_drop_batch(capacity: int, device=None) -> DropBatch:
+    """A frame with no drop on ``device`` (None: the CUDA card)."""
+    return _on_device(_empty_arrays(capacity), device)
+
+
+def pack_drop_batch(rec: dict, capacity: int, device=None) -> DropBatch:
+    """Pad a host record dict into a fixed-capacity DropBatch on
+    ``device`` (None: the CUDA card; the widest drops are kept when
+    over capacity)."""
+    return _on_device(_packed_arrays(rec, capacity), device)
+
+
+def pack_drop_batches(recs, capacity: int, device=None) -> DropBatch:
+    """A (B, capacity) DropBatch from B host records (None for a frame
+    with no drop), padded on the host and moved to ``device`` (None:
+    the CUDA card) once per field."""
+    packed = [_packed_arrays(r, capacity) for r in recs]
+    return _on_device({k: np.stack([p[k] for p in packed])
+                       for k in packed[0]}, device)

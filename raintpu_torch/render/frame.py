@@ -14,9 +14,12 @@ stage by stage over a batch of B frames:
                              5 planes, or 8 with the saturation mask)
     blend + contrast adjust  ops.composite.blend, finalize_frame
 
-Only the physics strategy with the single-image envmap ('ours') is
-ported; the other features of the JAX pipeline raise
-NotImplementedError (see :func:`render_frames`).
+Every option of the JAX render goes through these stages: the physics
+strategy or the paper's baselines ``white`` and ``naive_db`` (unit
+gains, no defocus, no photometry envmap), streak noise (each
+Small/Medium drop rotated by its own noise angle, given as data or
+drawn from the frame's generator), and the captured-panorama envmap
+(``env_type='pano'``).
 """
 
 from __future__ import annotations
@@ -137,67 +140,104 @@ def batched_fog(bg: torch.Tensor, depth: torch.Tensor,
 
 
 def frame_background(bg: torch.Tensor, depth: torch.Tensor,
-                     cfg: PipelineConfig):
+                     cfg: PipelineConfig,
+                     pano: Optional[torch.Tensor] = None):
     """Drop-independent stage: fog + the envmaps. bg (B, H, W, 3),
     depth (B, H, W) -> (fogged, env_photo, env_save): env_photo at the
-    photometry resolution, env_save the full-resolution envmap of the
-    fogged frames when cfg.save_envmap, else None."""
-    cam = cfg.settings.camera
+    photometry resolution (None unless the physics strategy reads it),
+    env_save the full-resolution envmap when cfg.save_envmap, else None.
+    With env_type 'pano' the envmap is ``pano`` (B, He, We, 3), the
+    captured panorama, of any size; else it is extrapolated from the
+    fogged frames."""
+    st = cfg.settings
+    cam = st.camera
     h, w = cfg.image_hw
+    physics = st.rendering_strategy is None
     fogged = batched_fog(bg, depth, cfg)
     gen_ds, _ = env_downsamples(cfg)
-    pooled = _avg_pool_rgb(fogged, gen_ds)
-    geom_lo = envmap_ops.envmap_geometry(h // gen_ds, w // gen_ds, cam.focal)
-    env_photo = envmap_ops.generate_envmap(pooled, geom_lo)
-    env_save = None
-    if cfg.save_envmap:
-        env_save = envmap_ops.generate_envmap(
-            fogged, envmap_ops.envmap_geometry(h, w, cam.focal))
+    env_photo = env_save = None
+    if st.env_type == "pano" and (physics or cfg.save_envmap):
+        if pano is None:
+            raise ValueError("env_type='pano' requires a panorama input")
+        pano = pano.to(torch.float32)
+        if physics:
+            env_photo = _avg_pool_rgb(pano, gen_ds)
+        if cfg.save_envmap:
+            env_save = pano
+    elif physics or cfg.save_envmap:
+        if physics:
+            geom_lo = envmap_ops.envmap_geometry(h // gen_ds, w // gen_ds,
+                                                 cam.focal)
+            env_photo = envmap_ops.generate_envmap(
+                _avg_pool_rgb(fogged, gen_ds), geom_lo)
+        if cfg.save_envmap:
+            env_save = envmap_ops.generate_envmap(
+                fogged, envmap_ops.envmap_geometry(h, w, cam.focal))
     return fogged, env_photo, env_save
 
 
-def drop_fused_params(env_rgb: torch.Tensor, drops: DropBatch, textures,
-                      bin_edges: torch.Tensor, cfg: PipelineConfig,
+def drop_fused_params(env_rgb: Optional[torch.Tensor], drops: DropBatch,
+                      textures, bin_edges: torch.Tensor, cfg: PipelineConfig,
                       generator: Optional[torch.Generator] = None,
-                      tex_idx: Optional[torch.Tensor] = None):
+                      tex_idx: Optional[torch.Tensor] = None,
+                      noise_deg: Optional[torch.Tensor] = None):
     """Per-frame parameter prep for the fused kernel: photometry gains,
-    texture pick, geometry, damped DCT coefficients and blend rows.
+    texture pick, streak noise, geometry, damped DCT coefficients and
+    blend rows.
 
     ``tex_idx`` (B, N): the texture of every drop, given as data; when
-    None it is drawn from ``generator``. The saturation rows carry the
-    drops' pre-tau colors when cfg.compute_saturation_mask, else 0.
+    None it is drawn from ``generator``. ``noise_deg`` (B, N): every
+    drop's noise angle in degrees, given as data; when None and the
+    settings' noise_scale * noise_std is not 0, it is drawn from
+    ``generator`` after the texture picks (standard normal times
+    noise_std * noise_scale). Under the 'white' and 'naive_db'
+    strategies the gains are ones and nothing is defocused
+    (``env_rgb`` is not read). The saturation rows carry the drops'
+    pre-tau colors when cfg.compute_saturation_mask, else 0.
     Returns (list of rasterize.RungParams, overflow (B, n_buckets))."""
     st = cfg.settings
     cam = st.camera
     tex_hw = tuple(textures.raw.shape[1:])
+    physics = st.rendering_strategy is None
+    dev = drops.valid.device
 
-    env = photometry_ops.env_features(
-        env_rgb, downsample=env_downsamples(cfg)[1])
-    mid = (drops.wp1 + drops.wp2) / 2.0
-    gains = photometry_ops.drop_colors(
-        mid, env, sphere_radius=st.sphere_radius,
-        fov_deg=st.drop_fov_deg, irrad_type=st.irrad_type)
+    if physics:
+        env = photometry_ops.env_features(
+            env_rgb, downsample=env_downsamples(cfg)[1])
+        mid = (drops.wp1 + drops.wp2) / 2.0
+        gains = photometry_ops.drop_colors(
+            mid, env, sphere_radius=st.sphere_radius,
+            fov_deg=st.drop_fov_deg, irrad_type=st.irrad_type)
+    else:
+        gains = torch.ones(drops.valid.shape + (3,), dtype=torch.float32,
+                           device=dev)
 
     if tex_idx is None:
         tex_idx = raster_ops.select_textures(drops, bin_edges, generator)
-    tex_idx = tex_idx.to(device=drops.valid.device, dtype=torch.int64)
+    tex_idx = tex_idx.to(device=dev, dtype=torch.int64)
+    if noise_deg is None and st.noise_scale * st.noise_std != 0.0:
+        noise_deg = (torch.randn(drops.valid.shape, generator=generator,
+                                 device=dev)
+                     * st.noise_std * st.noise_scale)
 
     geom_d = raster_ops.drop_geometry(
         drops, tex_hw, cfg.image_wh,
         focal_m=cam.focal_m, f_number=cam.f_number,
         focus_plane=st.focus_plane, coc_pixsize=cfg.raster.coc_pixsize,
-        apply_defocus=True)
+        apply_defocus=physics,
+        noise_deg=None if noise_deg is None else noise_deg.to(
+            device=dev, dtype=torch.float32))
 
     lo, add_scale = composite_ops.blend_coefficients(
         drops.iw1, drops.iw2, drops.length,
         exposure_s=cam.exposure_s,
         opacity_attenuation=st.opacity_attenuation,
-        rendering_strategy=None)
+        rendering_strategy=st.rendering_strategy)
     add_rgb = gains * add_scale[..., None]
 
     rungs = raster_ops.raster_params_frame(
         drops, geom_d, tex_hw, tex_idx, cfg.image_wh, cfg.raster,
-        apply_defocus=True, fourier=(textures.ay, textures.bx))
+        apply_defocus=physics, fourier=(textures.ay, textures.bx))
     sat_rgb = gains if cfg.compute_saturation_mask else None
     for rung in rungs:
         raster_ops.fill_blend_rows(rung, lo, add_rgb, sat_rgb)
@@ -218,7 +258,9 @@ def kernel_rungs(rungs, cfg: PipelineConfig):
 def fused_field_planes(bg, depth, drops: DropBatch, textures, bin_edges,
                        cfg: PipelineConfig,
                        generator: Optional[torch.Generator] = None,
-                       tex_idx: Optional[torch.Tensor] = None):
+                       tex_idx: Optional[torch.Tensor] = None,
+                       noise_deg: Optional[torch.Tensor] = None,
+                       pano: Optional[torch.Tensor] = None):
     """Batched fused raster+composite up to the field planes.
 
     Returns (fogged, env_save, planes, overflow) with ``planes``
@@ -226,9 +268,10 @@ def fused_field_planes(bg, depth, drops: DropBatch, textures, bin_edges,
     [, sat_r, sat_g, sat_b]) — 8 planes when
     cfg.compute_saturation_mask — and image-sized already (the JAX
     package's are padded for TPU window tiling)."""
-    fogged, env_photo, env_save = frame_background(bg, depth, cfg)
+    fogged, env_photo, env_save = frame_background(bg, depth, cfg, pano)
     rungs, overflow = drop_fused_params(env_photo, drops, textures,
-                                        bin_edges, cfg, generator, tex_idx)
+                                        bin_edges, cfg, generator, tex_idx,
+                                        noise_deg)
     planes = fused_raster_composite(
         kernel_rungs(rungs, cfg), cfg.image_hw,
         tuple(textures.raw.shape[1:]),
@@ -264,21 +307,6 @@ def finalize_frame(bg, fogged, fields: composite_ops.FieldMaps, env_save,
                        saturation_mask=fields.sat)
 
 
-def _refuse_unported(cfg: PipelineConfig) -> None:
-    st = cfg.settings
-    unported = [
-        (st.env_type != "ours", f"env_type={st.env_type!r}"),
-        (st.rendering_strategy is not None,
-         f"rendering_strategy={st.rendering_strategy!r}"),
-        (st.noise_scale * st.noise_std != 0.0, "streak noise"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(
-                f"raintpu_torch renders the physics path only; {what} "
-                "is not ported")
-
-
 def render_frames(bg: torch.Tensor,
                   depth: torch.Tensor,
                   drops: DropBatch,
@@ -286,20 +314,22 @@ def render_frames(bg: torch.Tensor,
                   bin_edges: torch.Tensor,
                   cfg: PipelineConfig,
                   generator: Optional[torch.Generator] = None,
-                  tex_idx: Optional[torch.Tensor] = None) -> FrameOutput:
+                  tex_idx: Optional[torch.Tensor] = None,
+                  noise_deg: Optional[torch.Tensor] = None,
+                  pano: Optional[torch.Tensor] = None) -> FrameOutput:
     """Render rain onto a batch of frames.
 
     bg: (B, H, W, 3) RGB in [0, 1]; depth: (B, H, W) metric depth (m);
     drops: DropBatch with leading dim B; textures: data.textures
     TextureBank; bin_edges: (4,) texture ratio-bin edges. Texture picks
-    come from ``tex_idx`` (B, N) when given, else from ``generator``.
-
-    Refuses (NotImplementedError) what the port does not do yet:
-    env_type 'pano', the 'white' and 'naive_db' strategies, and streak
-    noise.
+    come from ``tex_idx`` (B, N) when given, else from ``generator``;
+    so does the streak noise ``noise_deg`` (B, N), in degrees, when the
+    settings' noise_scale * noise_std is not 0 (see
+    :func:`drop_fused_params`). ``pano`` (B, He, We, 3): the captured
+    panoramas, read when the settings' env_type is 'pano'.
     """
-    _refuse_unported(cfg)
     fogged, env_save, planes, overflow = fused_field_planes(
-        bg, depth, drops, textures, bin_edges, cfg, generator, tex_idx)
+        bg, depth, drops, textures, bin_edges, cfg, generator, tex_idx,
+        noise_deg, pano)
     return finalize_frame(bg, fogged, crop_field_planes(planes, cfg),
                           env_save, overflow, cfg)

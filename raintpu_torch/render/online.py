@@ -6,16 +6,20 @@ renderer's drop schema. Frame i draws from its own generator
 (:func:`~raintpu_torch.physics.simulator.frame_generator` of
 (seed, i)), so its drops do not depend on the batch it is simulated in,
 and the drops lost to the simulation capacity are counted exactly by
-replaying the count draw. Exporting the simulation as reference XML
-(``--export_xml``) is not ported yet.
+replaying the count draw. With ``export_xml`` the job also keeps every
+frame's simulation (before compaction) and :meth:`finish_export` writes
+it as reference-format XML (``--export_xml``).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from raintpu_torch.data import db as db_mod
+from raintpu_torch.particles import xml_io
 from raintpu_torch.particles.schema import compact_drop_batch
 from raintpu_torch.physics.simulator import (SimConfig, frame_generator,
                                              schedule_from_settings,
@@ -33,10 +37,6 @@ class OnlineRenderJob(RenderJob):
     export_xml: bool = False
 
     def _setup_drop_source(self, seq, w_i, weather, hw) -> None:
-        if self.export_xml:
-            raise NotImplementedError(
-                "export_xml needs particles/xml_io.py, which raintpu_torch "
-                "does not port yet")
         s = self.spec
         rsettings = settings_from_dict(s.settings)
         # Per-sequence sim overrides (regex-matched), like db.sim.
@@ -54,6 +54,12 @@ class OnlineRenderJob(RenderJob):
         self._sim_seed = s.seed
         self._trunc_seen = set()
         self._render_cap = None
+        self._export_frames = None
+        if self.export_xml:
+            if not hasattr(self, "_exports"):
+                self._exports = {}
+            key = (seq, weather["weather"], weather["fallrate"])
+            self._export_frames = self._exports.setdefault(key, {})
 
     def _generator(self, frame_idx: int) -> torch.Generator:
         return frame_generator(self._sim_seed, frame_idx, self.device)
@@ -68,7 +74,21 @@ class OnlineRenderJob(RenderJob):
             float(self._sched_expo[i]), float(self._sched_focal[i]),
             device=self.device)
         self._count_truncation([frame_idx])
+        self._record_export(frame_idx, batch, i)
         return batch
+
+    def _record_export(self, frame_idx: int, batch, sched_i: int) -> None:
+        """Keep one frame's simulation (N, ...) as a raw XML record."""
+        if self._export_frames is None or frame_idx in self._export_frames:
+            return
+        raw = xml_io.batch_to_raw_frames(
+            batch, self._sim_cfg.image_wh,
+            cam_hz=self._sim_cfg.cam_hz,
+            exposure_s=float(self._sched_expo[sched_i]),
+            render_scale=self._sim_cfg.render_scale,
+            focal_px=float(self._sim_cfg.focal_px[0]))
+        raw[0]["id"] = frame_idx
+        self._export_frames[frame_idx] = raw[0]
 
     def _count_truncation(self, frame_indices) -> None:
         """Add the drops the capacity clamp lost in frames not counted
@@ -131,4 +151,24 @@ class OnlineRenderJob(RenderJob):
             col(self._sched_fall), col(self._sched_speed),
             col(self._sched_expo), col(self._sched_focal))
         self._count_truncation(frame_indices)
+        if self._export_frames is not None:
+            for b, fi in enumerate(frame_indices):
+                self._record_export(fi, batch.map(lambda t: t[b]),
+                                    int(sched[b]))
         return batch
+
+    def finish_export(self, root_dir: str):
+        """Write the kept simulations as reference-format XML under
+        ``root_dir/SEQ/WEATHER/{N}mm/0000_camera0.xml`` (the layout the
+        offline mode reads particle files from, my_utils.py:172-173).
+        Returns the list of written paths."""
+        paths = []
+        for (seq, weather, fallrate), frames in \
+                getattr(self, "_exports", {}).items():
+            d = os.path.join(root_dir, seq, weather, f"{fallrate}mm")
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(d, "0000_camera0.xml")
+            xml_io.write_particles_xml(
+                path, [frames[k] for k in sorted(frames)])
+            paths.append(path)
+        return paths

@@ -8,18 +8,19 @@ pool. Behaviours kept from the reference and the JAX job:
 - conflict strategies ``overwrite|skip|rename_folder`` at folder and
   frame granularity — the file-keyed idempotency that doubles as
   crash-resume;
-- per-frame determinism: frame i's texture picks come from a generator
-  seeded ``seed * 100003 + i`` (the JAX job's ``PRNGKey`` of the same
-  number), so a frame's output depends neither on ``--frame_start`` nor
-  on the batch it is rendered in;
+- per-frame determinism: frame i's texture picks, then its streak
+  noise, come from a generator seeded ``seed * 100003 + i`` (the JAX
+  job's ``PRNGKey`` of the same number), so a frame's output depends
+  neither on ``--frame_start`` nor on the batch it is rendered in;
 - output layout ``OUT/DATASET[_strategy]/SEQ/rain/{N}mm/{rainy_image,
   rain_mask[, saturation_mask]}/NAME.{png,npy}`` plus a sequence-level
   ``envmap/``.
 
 The job renders on ``JobSpec.device`` (the CUDA card unless the caller
-asks for the CPU). The drop source is the online simulator
-(:mod:`raintpu_torch.render.online`); the XML particle files of the
-offline mode are not ported yet.
+asks for the CPU). Its drop source is the weather's particle XML file
+(:mod:`raintpu_torch.particles.xml_io`), packed on the host a batch at
+a time and moved to the device once per batch;
+:mod:`raintpu_torch.render.online` replaces it with the simulator.
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ from raintpu_torch.data import io as data_io
 from raintpu_torch.data.textures import (StreakDatabase, get_streak_database,
                                          texture_bank)
 from raintpu_torch.ops.rasterize import (BucketSpec, RasterConfig,
-                                         select_textures)
+                                         fit_raster_config, select_textures)
+from raintpu_torch.particles import xml_io
+from raintpu_torch.particles.schema import pack_drop_batches
 from raintpu_torch.render.camera import RenderSettings, settings_from_dict
 from raintpu_torch.render.frame import PipelineConfig, render_frames
 from raintpu_torch.utils.logging import (ProgressScope, natural_listdir,
@@ -66,8 +69,10 @@ class JobSpec:
     # Compute + save the reference's rainy_saturation_mask
     # (bad_weather.py:450-460; it accumulates one per frame).
     save_saturation: bool = False
-    # Environment-map source: 'ours' extrapolates from the frame; 'pano'
-    # (captured panoramas from panos_dir) is not ported yet.
+    # Environment-map source: 'ours' extrapolates from the frame
+    # (generator.py:400); 'pano' loads a captured panorama per frame
+    # from panos_dir/<frame-file-name> (generator.py:401-403, which
+    # reads data/panos/<file_name>).
     env_type: str = "ours"
     panos_dir: Optional[str] = None
     frame_start: int = 0
@@ -81,10 +86,11 @@ class JobSpec:
     batch_size: int = 4
     drop_capacity: int = 2048
     seed: int = 0
-    # default: the fixed 4-rung RasterConfig.default ladder; tiny:
-    # minimal buckets for tests and smoke runs. 'fitted' (a ladder fitted
-    # to the weather's drop population) is not ported yet.
-    raster_profile: str = "default"   # default | tiny
+    # default: the fixed 4-rung RasterConfig.default ladder; fitted: a
+    # ladder fitted to the first 8 frames' drops of the weather
+    # (ops.rasterize.fit_raster_config); tiny: minimal buckets for tests
+    # and smoke runs.
+    raster_profile: str = "default"   # default | fitted | tiny
     # Block-reduction of the cone-photometry envmap features
     # (PipelineConfig.cone_downsample); 1 = exact.
     cone_downsample: int = 4
@@ -175,7 +181,20 @@ class RenderJob:
             rendering_strategy=s.rendering_strategy,
             env_type=s.env_type)
 
-    def _pipeline_config(self, rsettings, hw, fallrate) -> PipelineConfig:
+    def _load_pano(self, image_file: str) -> np.ndarray:
+        """Captured panorama for a frame (env_type='pano'): the file of
+        the same name under panos_dir (reference generator.py:401-403)."""
+        s = self.spec
+        if not s.panos_dir:
+            raise ValueError("env_type='pano' requires panos_dir")
+        path = os.path.join(s.panos_dir, os.path.basename(image_file))
+        from PIL import Image
+
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"), np.float32) / 255.0
+
+    def _pipeline_config(self, rsettings, hw, fallrate, tex_hw,
+                         n_files: int) -> PipelineConfig:
         s = self.spec
         kw = dict(save_envmap=s.save_envmap,
                   compute_saturation_mask=s.save_saturation,
@@ -191,9 +210,15 @@ class RenderJob:
                 fallrate=float(fallrate), raster=raster, env_downsample=8,
                 **kw)
         if s.raster_profile == "fitted":
-            raise NotImplementedError(
-                "raster_profile='fitted' needs fit_raster_config, which "
-                "raintpu_torch does not port yet; use 'default' or 'tiny'")
+            # Fit the ladder to the drops of the weather's first frames,
+            # from the drop source just set up; the overflow counters
+            # still warn if later frames outgrow the fit.
+            sample = self._drops_for_frames(list(range(min(8, n_files))))
+            raster = fit_raster_config(sample, tex_hw, (hw[1], hw[0]),
+                                       rsettings)
+            return PipelineConfig(
+                settings=rsettings, image_hw=tuple(hw),
+                fallrate=float(fallrate), raster=raster, **kw)
         if s.raster_profile != "default":
             raise ValueError(f"raster_profile={s.raster_profile!r}: "
                              "expected 'default', 'fitted' or 'tiny'")
@@ -299,7 +324,9 @@ class RenderJob:
             return
         hw = first[0].shape[:2]
         self._setup_drop_source(seq, w_i, weather, hw)
-        cfg = self._pipeline_config(self._render_settings(), hw, fallrate)
+        cfg = self._pipeline_config(self._render_settings(), hw, fallrate,
+                                    tuple(textures.raw.shape[1:]),
+                                    len(files))
 
         idx = self._frame_indices(len(files))
         prog.start("frame", len(idx))
@@ -329,6 +356,8 @@ class RenderJob:
             i, name, oi, om = item
             pair = data_io.load_frame(files[i], dfiles[i], render_scale,
                                       depth_scale)
+            if pair is not None and s.env_type == "pano":
+                pair = pair + (self._load_pano(files[i]),)
             return (i, name, oi, om, pair)
 
         batch: List = []
@@ -355,48 +384,72 @@ class RenderJob:
     # -- drop sources -----------------------------------------------------
     def _setup_drop_source(self, seq, w_i, weather, hw) -> None:
         """The offline drop source: the weather's particle XML."""
-        raise NotImplementedError(
-            "raintpu_torch renders from the online simulator only; the "
-            "XML particle source (particles/xml_io.py) is not ported yet")
+        s = self.spec
+        self._streaks = xml_io.load_streaks(
+            s.particles[seq][w_i], image_wh=(hw[1], hw[0]),
+            render_scale=s.settings["render_scale"], dataset=s.dataset)
+        self._frame_ids = sorted(self._streaks)
+        self._trunc_seen = set()
+
+    def _frame_record(self, frame_idx: int):
+        """Host record of one frame: the file's frame at frame_idx modulo
+        the number of simulated frames (reference generator.py:321), or
+        None when the file has none. Drops over the capacity are counted
+        once a frame (batch padding repeats a frame)."""
+        if not self._frame_ids:
+            return None
+        rec = self._streaks.get(
+            self._frame_ids[frame_idx % len(self._frame_ids)])
+        if rec is not None and frame_idx not in self._trunc_seen:
+            self._trunc_seen.add(frame_idx)
+            self._truncated_total += max(
+                0, len(rec["ip1"]) - self.spec.drop_capacity)
+        return rec
 
     def _drops_for_frames(self, frame_indices):
         """Stacked DropBatch (leading dim len(frame_indices)) on the
-        job's device."""
-        raise NotImplementedError(
-            "the XML particle source (particles/xml_io.py) is not ported "
-            "yet; use OnlineRenderJob")
+        job's device, packed on the host and moved once per field."""
+        return pack_drop_batches(
+            [self._frame_record(i) for i in frame_indices],
+            self.spec.drop_capacity, self.device)
 
-    def _texture_picks(self, drops, edges, frame_indices) -> torch.Tensor:
-        """(B, N) texture of every drop: frame i draws from a generator
-        seeded seed * 100003 + i, whatever batch it is in."""
+    def _frame_draws(self, drops, edges, frame_indices):
+        """(B, N) texture of every drop and, when the settings ask for
+        streak noise, (B, N) noise angles (else None): frame i draws its
+        texture picks, then its noise, from a generator seeded
+        seed * 100003 + i, whatever batch it is in."""
         s = self.spec
-        picks = []
+        noisy = s.noise_scale * s.noise_std != 0.0
+        picks, noise = [], []
         for b, i in enumerate(frame_indices):
             gen = torch.Generator(device=self.device).manual_seed(
                 s.seed * 100003 + i)
-            picks.append(select_textures(drops.map(lambda t: t[b]),
-                                         edges, gen))
-        return torch.stack(picks)
+            one = drops.map(lambda t: t[b])
+            picks.append(select_textures(one, edges, gen))
+            if noisy:
+                noise.append(torch.randn(one.valid.shape, generator=gen,
+                                         device=self.device)
+                             * s.noise_std * s.noise_scale)
+        return torch.stack(picks), torch.stack(noise) if noisy else None
 
     def _render_batch(self, batch, textures, edges, cfg, out_seq, stats,
                       pool, saves) -> None:
         s = self.spec
         n_real = len(batch)
-        bgs = [pair[0] for (_i, _n, _oi, _om, pair) in batch]
-        depths = [pair[1] for (_i, _n, _oi, _om, pair) in batch]
-        fidx = [i for (i, *_rest) in batch]
         # Pad a short final batch to the job's batch size.
-        while len(bgs) < s.batch_size:
-            bgs.append(bgs[-1])
-            depths.append(depths[-1])
-            fidx.append(fidx[-1])
+        items = batch + [batch[-1]] * (s.batch_size - n_real)
+        fidx = [i for (i, *_rest) in items]
+
+        def stacked(k):
+            return torch.as_tensor(np.stack([pair[k] for *_, pair in items]),
+                                   device=self.device)
 
         drops = self._drops_for_frames(fidx)
-        tex_idx = self._texture_picks(drops, edges, fidx)
+        tex_idx, noise_deg = self._frame_draws(drops, edges, fidx)
         out = render_frames(
-            torch.as_tensor(np.stack(bgs), device=self.device),
-            torch.as_tensor(np.stack(depths), device=self.device),
-            drops, textures, edges, cfg, tex_idx=tex_idx)
+            stacked(0), stacked(1), drops, textures, edges, cfg,
+            tex_idx=tex_idx, noise_deg=noise_deg,
+            pano=stacked(2) if s.env_type == "pano" else None)
         rainy = out.rainy_image.cpu().numpy()
         masks = out.rain_mask.cpu().numpy()
         envs = out.envmap.cpu().numpy() if cfg.save_envmap else None

@@ -22,6 +22,7 @@ from raintpu_torch.ops import blur_kernel
 from raintpu_torch.ops.blur import cv2_gaussian_kernel, separable_blur_hw
 from raintpu_torch.ops.rasterize import RasterConfig
 from raintpu_torch.render import frame as tframe
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

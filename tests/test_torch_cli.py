@@ -1,6 +1,7 @@
 """The port's CLI against raintpu's: the same resolution of a dataset
-into sequences, weather, settings and JobSpec fields, and an online
-render end to end on the CPU (``--device cpu``)."""
+into sequences, weather, settings, particle files and JobSpec fields,
+and the online and offline renders and the XML export end to end on the
+CPU (``--device cpu``)."""
 
 import dataclasses
 import os
@@ -12,6 +13,7 @@ import pytest
 from raintpu import cli as jcli
 from raintpu_torch import cli as tcli
 from raintpu_torch.render import online as tonline
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 ARGS = ["--dataset", "customdb", "--intensity", "5,25", "--online",
         "--batch_size", "2", "--drop_capacity", "128", "--seed", "4",
@@ -91,9 +93,90 @@ def test_main_renders_online_on_the_cpu(ds, capsys):
     assert "'rendered': 3" in capsys.readouterr().out
 
 
-def test_unported_modes_raise(ds):
+# customdb's settings shrunk to the test frames (48x24, a 0.5 s
+# simulation: 5 frames), in both packages' plugin.
+SMALL = {"cam_WH": [48, 24], "cam_CCD_WH": [48, 24], "cam_CCD_pixsize": 20.0,
+         "cam_focal": 8, "sim_mode": "normal", "sim_duration": 0.5,
+         "sequences": {}}
+
+
+@pytest.fixture()
+def small(ds, monkeypatch):
+    import raintpu.data.datasets.customdb as jcustom
+    import raintpu_torch.data.datasets.customdb as tcustom
+    for mod in (jcustom, tcustom):
+        full = mod.settings()
+        monkeypatch.setattr(mod, "settings", lambda full=full: {**full,
+                                                                **SMALL})
+    return ds
+
+
+def test_check_args_offline_simulates_missing_files(small):
+    """Without --online the port simulates the missing particle files
+    (on the CPU here) and resolves the same paths as raintpu, which then
+    finds them and simulates nothing."""
     offline = [a for a in ARGS if a != "--online"]
-    with pytest.raises(NotImplementedError, match="xml_io"):
-        tcli.check_args(offline)
-    with pytest.raises(NotImplementedError, match="xml_io"):
-        tcli.main(ARGS + ["--device", "cpu", "--export_xml"])
+    t = tcli.check_args(offline + ["--device", "cpu"])
+    assert sorted(t.particles) == ["seqA", "seqB"]
+    for seq, paths in t.particles.items():
+        assert [os.path.dirname(p) for p in paths] == [
+            os.path.join("data", "particles", "customdb", seq, "rain",
+                         f"{i}mm") for i in (5, 25)]
+        for p in paths:
+            assert sorted(os.listdir(os.path.dirname(p))) == [
+                "0000_camera0.xml", "automate_log.txt", "sim_options.json"]
+    mtimes = {p: os.path.getmtime(p) for ps in t.particles.values()
+              for p in ps}
+    j = jcli.check_args(offline)
+    assert j.particles == t.particles and j.sequences == t.sequences
+    assert {p: os.path.getmtime(p) for p in mtimes} == mtimes
+    assert tcli.particles_glob("a", {"weather": "rain", "fallrate": 5}) \
+        == jcli.particles_glob("a", {"weather": "rain", "fallrate": 5})
+
+
+def test_main_renders_offline_on_the_cpu(small, capsys):
+    """The offline path end to end: the tool writes the XML, the native
+    parser reads it, the ladder is fitted, every frame is rendered."""
+    from raintpu_torch.particles import xml_io
+
+    before = dict(xml_io.parse_particles_xml_raw.parses)
+    offline = [a for a in ARGS if a != "--online"]
+    assert tcli.main(offline + ["--device", "cpu", "--sequences", "seqA",
+                                "--intensity", "200",
+                                "--raster_profile", "fitted"]) == 0
+    assert xml_io.parse_particles_xml_raw.parses["native"] == \
+        before["native"] + 1
+    xml = os.path.join("data", "particles", "customdb", "seqA", "rain",
+                       "200mm", "0000_camera0.xml")
+    assert os.path.exists(xml + ".npz")
+    out = os.path.join("data", "output", "customdb", "seqA", "rain",
+                       "200mm")
+    names = [f"{i:06d}.npy" for i in range(3)]
+    for sub in ("rainy_image", "rain_mask", "saturation_mask"):
+        assert sorted(os.listdir(os.path.join(out, sub))) == names
+    mass = sum(float(np.load(os.path.join(out, "rain_mask", n)).sum())
+               for n in names)
+    assert mass > 0
+    assert "'rendered': 3" in capsys.readouterr().out
+
+
+def test_main_exports_xml_online(small, monkeypatch, capsys):
+    """--online --export_xml writes the file finish_export names, in the
+    layout the offline mode reads, and every frame reads back with the
+    valid count of its simulation."""
+    from raintpu_torch.particles import xml_io
+
+    jobs = []
+    run = tonline.OnlineRenderJob.run
+    monkeypatch.setattr(tonline.OnlineRenderJob, "run",
+                        lambda self: jobs.append(self) or run(self))
+    assert tcli.main(ARGS + ["--device", "cpu", "--sequences", "seqA",
+                             "--intensity", "200", "--export_xml"]) == 0
+    path = os.path.join("data", "particles", "customdb", "seqA", "rain",
+                        "200mm", "0000_camera0.xml")
+    assert f"Exported particle XML: {path}" in capsys.readouterr().out
+    streaks = xml_io.load_streaks(path, image_wh=(48, 24), use_cache=False)
+    assert sorted(streaks) == [0, 1, 2]
+    counts = [int(jobs[0]._drops_for_frame(i).count()) for i in range(3)]
+    assert [len(streaks[i]["ip1"]) for i in range(3)] == counts
+    assert sum(counts) > 0

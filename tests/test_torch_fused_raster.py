@@ -34,6 +34,7 @@ from raintpu_torch import interop
 from raintpu_torch.ops import fused_raster as tfr
 from raintpu_torch.ops import rasterize as trz
 from raintpu_torch.render import frame as tframe
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 W, H, B, CAP = 96, 48, 2, 32
 ATOL = 2e-4

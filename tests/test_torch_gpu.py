@@ -277,6 +277,69 @@ def test_kernel_empty_rung_writes_nothing(cuda):
     assert not got.any()
 
 
+# A fitted ladder's shape (ops.rasterize.fit_raster_config): widths
+# 64 - 2 * pad and 128 - 2 * pad, series (12, 6, 3) and (24, 10, 4) /
+# (16, 8, 4), so one launch mixes ranks 3 and 4; a tail rung taller than
+# the scene.
+FITTED = (BucketSpec(24, 50, 4, 96, 12, 6, 3),
+          BucketSpec(40, 40, 8, 32, 12, 6, 3),
+          BucketSpec(56, 114, 4, 24, 24, 10, 4),
+          BucketSpec(368, 256, 40, 16, 16, 8, 4))
+# The render options' operands: the fitted ladder, zero-sigma windows
+# ('white', 'naive_db': no defocus, the window cut 0.25 past the
+# content) and Small/Medium drops rotated by streak noise.
+REGIMES = {"fitted": (FITTED, {}),
+           "white": (LADDER, {"rendering_strategy": "white"}),
+           "naive_db": (LADDER, {"rendering_strategy": "naive_db"}),
+           "noise": (LADDER, {"noise_scale": 1.0, "noise_std": 8.0})}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", sorted(REGIMES))
+@pytest.mark.parametrize("n_planes", [5, 8])
+def test_kernel_matches_plain_on_render_options(cuda, regime, n_planes):
+    import dataclasses
+
+    cfg, gen, drops, bg, depth, tex, edges = _scene(cuda)
+    ladder, options = REGIMES[regime]
+    cfg = dataclasses.replace(
+        cfg, raster=RasterConfig(buckets=ladder),
+        settings=dataclasses.replace(cfg.settings, **options))
+    _, env, _ = frame.frame_background(bg, depth, cfg)
+    prep, _ = frame.drop_fused_params(env, drops, tex, edges, cfg,
+                                      generator=gen)
+    rungs = frame.kernel_rungs(prep, cfg)
+    tex_hw = tuple(tex.raw.shape[1:])
+    before = tfr.fused_raster_composite.launches
+    got = tfr.fused_raster_composite(rungs, cfg.image_hw, tex_hw, n_planes)
+    want = tfr.fused_raster_plain(rungs, cfg.image_hw, tex_hw, n_planes)
+    again = tfr.fused_raster_composite(rungs, cfg.image_hw, tex_hw,
+                                       n_planes)
+    torch.cuda.synchronize()
+    assert tfr.fused_raster_composite.launches - before == 2
+    assert want[:, 0].sum() > 1.0
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_planes", [5, 8])
+def test_kernel_lone_drop_fills_the_fitted_tail_rung(cuda, n_planes):
+    """One drop whose window is a whole (776, 256) tail rung — past the
+    bottom of a KITTI frame — beside the fitted ladder's small rungs."""
+    small = [_synthetic_rung(cuda, (b.ph, b.pw), [[[90 * k, 30 * k]]], [1],
+                             seed=k, series=(b.ranks, b.modes_y, b.modes_x))
+             for k, b in enumerate(FITTED[:3])]
+    tail = _synthetic_rung(cuda, (776, 256), [[[500, 0]]], [1], seed=9,
+                           series=(4, 16, 8))
+    for rungs in ([tail], small + [tail]):
+        got = tfr.fused_raster_composite(rungs, KITTI_HW, TEX_HW, n_planes)
+        want = tfr.fused_raster_plain(rungs, KITTI_HW, TEX_HW, n_planes)
+        torch.cuda.synchronize()
+        assert want[:, 0, :, 500:756].sum() > 1.0
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,ksize", [((8, 375, 1242), 25),
                                          ((3, 40, 200), 11),

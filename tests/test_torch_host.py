@@ -20,6 +20,7 @@ from raintpu_torch.data import textures as ttex
 from raintpu_torch.physics import simulator as tsim
 from raintpu_torch.render import camera as tcam
 from raintpu_torch.utils import logging as tlog
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 # The settings dict of tests/test_pipeline.py's jobs (48x96 frames).
 SMALL = {
@@ -150,3 +151,44 @@ def test_plugins_and_loader_match(tmp_path):
                           jio.crop_center(grid, 3, 2))
     assert list(tio.prefetch_map(lambda v: v * 2, range(11), depth=3)) == \
         list(range(0, 22, 2))
+
+
+def test_cityscapes_plugin_matches(tmp_path):
+    """The port's Cityscapes plugin finds the same sequences (PNG
+    folders, depth folders excluded), paths, settings (render_scale and
+    depth_scale 2) and per-sequence simulation as raintpu's."""
+    root = tmp_path / "cityscapes"
+    for rel in ("leftImg8bit/train/aachen", "leftImg8bit/val/lindau",
+                "leftImg8bit/train/depth/aachen"):
+        (root / rel).mkdir(parents=True)
+        (root / rel / "f_000000.png").write_bytes(b"")
+    (root / "leftImg8bit" / "empty").mkdir()
+
+    def params():
+        from types import SimpleNamespace
+        return SimpleNamespace(images_root=str(root),
+                               dataset_root=str(root),
+                               depth_root=str(tmp_path / "depth"))
+
+    jp = jdb.resolve_paths("cityscapes", params())
+    tp = tdb.resolve_paths("cityscapes", params())
+    assert list(jp.sequences) == list(tp.sequences) == [
+        os.path.join("leftImg8bit", "train", "aachen"),
+        os.path.join("leftImg8bit", "val", "lindau")]
+    for attr in ("images", "depth", "calib"):
+        assert getattr(jp, attr) == getattr(tp, attr)
+    js, ts = jdb.settings("cityscapes"), tdb.settings("cityscapes")
+    assert ts["render_scale"] == ts["depth_scale"] == 2
+    assert js.keys() == ts.keys()
+    for k in js:
+        if k != "sequences":
+            assert js[k] == ts[k], k
+    seq = os.path.join("leftImg8bit", "train", "aachen")
+    jsim_, tsim_ = (db.sim("cityscapes", seq, "p") for db in (jdb, tdb))
+    assert jsim_["path"] == tsim_["path"] == os.path.join("p", "leftImg8bit")
+    jo, to = jsim_["options"], tsim_["options"]
+    assert jo.keys() == to.keys()
+    assert np.array_equal(jo["sim_steps"]["cam_motion"],
+                          to["sim_steps"]["cam_motion"])
+    assert {k: v for k, v in jo.items() if k != "sim_steps"} == \
+        {k: v for k, v in to.items() if k != "sim_steps"}

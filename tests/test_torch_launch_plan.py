@@ -29,7 +29,17 @@ HAND = ((24, 32, 224), (48, 32, 64), (96, 64, 32), (112, 96, 16))
 CLI_CAPACITY = 2048
 DEFAULT = tuple((b.ph, b.pw, b.capacity)
                 for b in RasterConfig.default(CLI_CAPACITY).buckets)
-WINDOWS = sorted({(ph, pw) for ph, pw, _ in HAND + DEFAULT}
+# A fitted ladder's shape (ops.rasterize.fit_raster_config): widths
+# snapped to 64 - 2 * pad or 128 - 2 * pad (pad = int(1.25 * radius) +
+# 2), series (12, 6, 3), (24, 10, 4), (16, 8, 4), ranks 3 and 4 in one
+# launch, and a tail rung over the sampled max times 1.15, taller than
+# any default rung.
+FITTED_SPECS = (BucketSpec(24, 50, 4, 88, 12, 6, 3),
+                BucketSpec(40, 40, 8, 32, 12, 6, 3),
+                BucketSpec(56, 114, 4, 24, 24, 10, 4),
+                BucketSpec(776, 256, 40, 16, 16, 8, 4))
+FITTED = tuple((b.ph, b.pw, b.capacity) for b in FITTED_SPECS)
+WINDOWS = sorted({(ph, pw) for ph, pw, _ in HAND + DEFAULT + FITTED}
                  | {(5, 7), (1, 1), (4096, 1), (1, 5000), (331, 13)})
 # The fog stacks of the two paths: 4 planes a frame, batch 8 (CLI) and
 # batch 48 (bench), at KITTI size.
@@ -57,7 +67,8 @@ HAND_SPECS = (BucketSpec(24, 32, 5, 224, 12, 6, 3),
               BucketSpec(96, 64, 12, 32, 24, 10, 4),
               BucketSpec(112, 96, 20, 16, 16, 8, 4))
 LADDERS = {"hand": HAND_SPECS,
-           "default": RasterConfig.default(CLI_CAPACITY).buckets}
+           "default": RasterConfig.default(CLI_CAPACITY).buckets,
+           "fitted": FITTED_SPECS}
 
 
 def _tile_rect(plan, image_hw, tile):

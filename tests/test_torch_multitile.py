@@ -34,6 +34,7 @@ from raintpu.render.camera import CameraSettings, RenderSettings
 from raintpu_torch import interop
 from raintpu_torch.ops import fused_raster as tfr
 from raintpu_torch.render import frame as tframe
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 H, W, CAP = 128, 256, 64
 RUNG = 2            # (320, 192): plan_window gives 2 row tiles

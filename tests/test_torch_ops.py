@@ -34,6 +34,7 @@ from raintpu_torch.ops import solid_angle as tsa
 from raintpu_torch.physics import dsd as tdsd
 from raintpu_torch.physics import simulator as tsim
 from raintpu_torch.render import frame as tframe
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

@@ -10,9 +10,16 @@ uint8 within 1 level; rain and saturation masks within atol 2e-4 (the
 fused path's bar against the XLA path that raintpu runs on the CPU);
 envmaps within 1e-5; the rendered/skipped/overflow counts equal.
 
+The offline jobs of both packages render the same particle XML file
+(written by the port's simulation tool), with the 'default' and the
+'fitted' ladder, to the same bars, with equal truncation and overflow
+counts.
+
 Then the port alone: the skip strategy resumes, a frame's output does
-not depend on ``frame_start``, the online job's batched simulation
-equals its one-frame simulation, and truncation is counted exactly.
+not depend on ``frame_start``, frame i's texture picks and streak noise
+do not depend on its batch, a pano job reads the panoramas named like
+its frames, the online job's batched simulation equals its one-frame
+simulation, and truncation is counted exactly.
 """
 
 import os
@@ -32,6 +39,8 @@ from raintpu_torch import interop
 from raintpu_torch.physics import simulator as tsim
 from raintpu_torch.render import online as tonline
 from raintpu_torch.render import pipeline as tpipe
+from raintpu_torch.tools import particles_simulation as ttool
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 H, W, N_FRAMES, CAP = 48, 96, 3, 64
 SEED = 3
@@ -109,16 +118,21 @@ def _jobs(drops):
             return interop.drop_batch_from_numpy(_stack(drops, fidx),
                                                  device=self.device)
 
-        def _texture_picks(self, t_drops, edges, fidx):
-            st = _jax_batch(_stack(drops, fidx))
-            jedges = jnp.asarray(edges.numpy())
-            keys = jnp.stack([jax.random.PRNGKey(self.spec.seed * 100003 + i)
-                              for i in fidx])
-            picks = jax.vmap(lambda d, k: jrz.select_textures(
-                d, jedges, jax.random.split(k)[0]))(st, keys)
-            return torch.as_tensor(np.array(picks))
+        _frame_draws = _jax_draws
 
     return JaxJob, PortJob
+
+
+def _jax_draws(job, t_drops, edges, fidx):
+    """raintpu's texture picks for these frames (PRNGKey(seed * 100003 +
+    i), split, per-drop keys), as data; no streak noise."""
+    st = _jax_batch(interop.numpy_fields(t_drops))
+    jedges = jnp.asarray(edges.numpy())
+    keys = jnp.stack([jax.random.PRNGKey(job.spec.seed * 100003 + i)
+                      for i in fidx])
+    picks = jax.vmap(lambda d, k: jrz.select_textures(
+        d, jedges, jax.random.split(k)[0]))(st, keys)
+    return torch.as_tensor(np.array(picks)), None
 
 
 def _jax_batch(st):
@@ -218,10 +232,33 @@ def test_port_texture_picks_are_keyed_by_frame(dataset):
     edges = torch.as_tensor(np.array([0.12, 0.24, 0.48, 0.96], np.float32))
     d = interop.drop_batch_from_numpy(_stack(drops, [0, 1, 2]),
                                       device="cpu")
-    batch = job._texture_picks(d, edges, [0, 1, 2])
-    alone = job._texture_picks(d.map(lambda t: t[1:2]), edges, [1])
+    batch, noise = job._frame_draws(d, edges, [0, 1, 2])
+    alone, _ = job._frame_draws(d.map(lambda t: t[1:2]), edges, [1])
+    assert noise is None
     assert torch.equal(batch[1], alone[0])
     assert not torch.equal(batch[0], batch[1])
+
+
+def test_port_noise_is_keyed_by_frame(dataset):
+    """With streak noise, frame i draws its noise after its texture picks
+    from the same generator: the same draws in any batch."""
+    tmp, drops = dataset
+    job = tpipe.RenderJob(_spec(tpipe, tmp, "port_noise", noise_scale=2.0,
+                                noise_std=3.0))
+    edges = torch.as_tensor(np.array([0.12, 0.24, 0.48, 0.96], np.float32))
+    d = interop.drop_batch_from_numpy(_stack(drops, [0, 1, 2]),
+                                      device="cpu")
+    picks, noise = job._frame_draws(d, edges, [0, 1, 2])
+    alone_picks, alone = job._frame_draws(
+        d.map(lambda t: t[2:3]), edges, [2])
+    assert torch.equal(noise[2], alone[0])
+    assert torch.equal(picks[2], alone_picks[0])
+    assert not torch.equal(noise[0], noise[1])
+    gen = torch.Generator().manual_seed(SEED * 100003 + 1)
+    trz_picks = torch.randint(0, 10, (CAP,), generator=gen)
+    assert torch.equal(picks[1] % 10, trz_picks)
+    want = torch.randn(CAP, generator=gen) * 6.0
+    assert torch.equal(noise[1], want)
 
 
 def _online(tmp, **kw):
@@ -270,14 +307,100 @@ def test_online_truncation_is_counted_exactly(dataset):
     assert stats["truncated_drops"] > 0 and stats["rendered"] == N_FRAMES
 
 
-def test_unported_sources_raise(dataset):
+@pytest.fixture(scope="module")
+def particles(dataset):
+    """The port's tool's XML for the dataset's weather (CPU), 5 frames at
+    200 mm/hr: 6-18 drops a frame, more than the jobs' capacity in
+    some."""
     tmp, _ = dataset
-    with pytest.raises(NotImplementedError, match="xml_io"):
-        tpipe.RenderJob(_spec(tpipe, tmp, "port_xml")).run()
-    with pytest.raises(NotImplementedError, match="fitted"):
-        tonline.OnlineRenderJob(_spec(tpipe, tmp, "port_fit",
-                                      raster_profile="fitted")).run()
-    job = tonline.OnlineRenderJob(_spec(tpipe, tmp, "port_export"))
-    job.export_xml = True
-    with pytest.raises(NotImplementedError, match="xml_io"):
-        job.run()
+    out = os.path.join(tmp, "particles", "toy", "seqA", "rain", "200mm")
+    return ttool.simulate_to_xml(out, SETTINGS,
+                                 {"weather": "rain", "fallrate": 200},
+                                 capacity=256, seed=2, verbose=False,
+                                 device="cpu")
+
+
+@pytest.mark.parametrize("profile", ["default", "fitted"])
+def test_offline_job_matches_raintpu(dataset, particles, monkeypatch,
+                                     profile):
+    """Both packages' RenderJob on the same XML file (the offline mode):
+    the port's packs each batch on the host, and with 'fitted' both fit
+    the same ladder to the first frames' drops."""
+    tmp, _ = dataset
+    j_out, t_out = [], []
+    _recording(monkeypatch, jpipe, j_out)
+    _recording(monkeypatch, tpipe, t_out)
+
+    class PortJob(tpipe.RenderJob):
+        _frame_draws = _jax_draws
+
+    kw = dict(particles={"seqA": [particles]}, raster_profile=profile,
+              drop_capacity=10,
+              weather=[{"weather": "rain", "fallrate": 200}])
+    want = jpipe.RenderJob(_spec(jpipe, tmp, f"jax_xml_{profile}",
+                                 **kw)).run()
+    got = PortJob(_spec(tpipe, tmp, f"port_xml_{profile}", **kw)).run()
+    for key in ("rendered", "skipped", "overflowed_drops",
+                "truncated_drops"):
+        assert got[key] == want[key], key
+    assert got["rendered"] == N_FRAMES and got["truncated_drops"] > 0
+    assert len(j_out) == len(t_out) == 2
+    mass = 0.0
+    for j, t in zip(j_out, t_out):
+        np.testing.assert_allclose(t["rain_mask"], j["rain_mask"],
+                                   atol=2e-4, rtol=0)
+        np.testing.assert_allclose(t["saturation_mask"],
+                                   j["saturation_mask"], atol=2e-4, rtol=0)
+        np.testing.assert_allclose(t["envmap"], j["envmap"], atol=1e-5,
+                                   rtol=0)
+        np.testing.assert_array_equal(t["overflow"], j["overflow"])
+        mass += float(t["rain_mask"].sum())
+    assert mass > 1.0, "the frames must render rain"
+    jd = os.path.join(tmp, f"jax_xml_{profile}", "toy", "seqA", "rain",
+                      "200mm", "rainy_image")
+    td = jd.replace("jax_xml", "port_xml")
+    assert sorted(os.listdir(jd)) == sorted(os.listdir(td))
+    for n in os.listdir(jd):
+        a, b = np.load(os.path.join(jd, n)), np.load(os.path.join(td, n))
+        assert np.abs(a.astype(np.int16) - b).max() <= 1, n
+
+
+def test_pano_job(tmp_path):
+    """env_type='pano': each frame's envmap is the 32x64 panorama named
+    like its frame file (PNG frames here, read with PIL), and the drops'
+    photometry follows it."""
+    rng = np.random.RandomState(4)
+    names = [f"{i:06d}.png" for i in range(2)]
+    from PIL import Image
+    for sub in ("rgb", "depth", "panos"):
+        (tmp_path / sub).mkdir()
+    for n in names:
+        Image.fromarray((rng.rand(H, W, 3) * 255).astype(np.uint8)).save(
+            tmp_path / "rgb" / n)
+        Image.fromarray(((rng.rand(H, W) * 60 + 3) * 256).astype(
+            np.uint16)).save(tmp_path / "depth" / n)
+        pano = np.zeros((32, 64, 3), np.uint8)
+        pano[..., 0] = 255
+        pano[..., 1] = (rng.rand(32, 64) * 40).astype(np.uint8)
+        Image.fromarray(pano).save(tmp_path / "panos" / n)
+    _, PortJob = _jobs(_frame_drops())
+    kw = dict(images={"seqA": str(tmp_path / "rgb")},
+              depth={"seqA": str(tmp_path / "depth")},
+              raster_profile="tiny")
+    outs = {}
+    for env in ("ours", "pano"):
+        stats = PortJob(_spec(tpipe, str(tmp_path), f"out_{env}",
+                              env_type=env, panos_dir=str(tmp_path / "panos"),
+                              **kw)).run()
+        assert stats["rendered"] == 2
+        outs[env] = os.path.join(str(tmp_path), f"out_{env}", "toy", "seqA")
+    n = names[1].replace(".png", ".npy")
+    env = np.load(os.path.join(outs["pano"], "envmap", n))
+    want = np.asarray(Image.open(tmp_path / "panos" / names[1]))
+    assert np.array_equal(env, want)
+    a, b = (np.load(os.path.join(outs[e], "rain", "25mm", "rainy_image", n))
+            for e in ("pano", "ours"))
+    assert np.abs(a.astype(np.float64) - b).mean() > 0.01
+    with pytest.raises(ValueError, match="panos_dir"):
+        PortJob(_spec(tpipe, str(tmp_path), "out_nodir", env_type="pano",
+                      **kw)).run()

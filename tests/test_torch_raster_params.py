@@ -25,6 +25,7 @@ from raintpu.render.camera import CameraSettings, RenderSettings
 from raintpu_torch import interop
 from raintpu_torch.ops import rasterize as trz
 from raintpu_torch.render import frame as tframe
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 B = 2
 

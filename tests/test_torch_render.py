@@ -27,6 +27,7 @@ from raintpu_torch.data.textures import texture_bank as port_texture_bank
 from raintpu_torch.ops import rasterize as trz
 from raintpu_torch.physics import simulator as tsim
 from raintpu_torch.render import frame as tframe
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 B = 2
 ATOL = 2e-4
@@ -117,23 +118,6 @@ def test_render_draws_textures_from_a_generator():
     b = tframe.render_frames(*args, generator=torch.Generator().manual_seed(9))
     assert torch.equal(a.rain_mask, b.rain_mask)
     assert a.rain_mask.sum() > 1.0
-
-
-@pytest.mark.parametrize("field,value", [
-    ("env_type", "pano"), ("rendering_strategy", "white"),
-    ("rendering_strategy", "naive_db"), ("noise", 1.0)])
-def test_render_refuses_unported_features(field, value):
-    _, tcfg = _configs(32, 16, 1, 8)
-    if field == "noise":
-        tcfg = dataclasses.replace(tcfg, settings=dataclasses.replace(
-            tcfg.settings, noise_scale=value, noise_std=value))
-    elif field in ("env_type", "rendering_strategy"):
-        tcfg = dataclasses.replace(tcfg, settings=dataclasses.replace(
-            tcfg.settings, **{field: value}))
-    else:
-        tcfg = dataclasses.replace(tcfg, **{field: value})
-    with pytest.raises(NotImplementedError):
-        tframe.render_frames(None, None, None, None, None, tcfg)
 
 
 @pytest.mark.parametrize("field,value", [

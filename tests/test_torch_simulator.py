@@ -22,6 +22,7 @@ from raintpu.render.camera import CameraSettings, RenderSettings
 from raintpu_torch import interop
 from raintpu_torch.particles import schema as tschema
 from raintpu_torch.physics import simulator as tsim
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 # The KITTI camera at 10 mm/hr (the benchmark's weather), as bench.py
 # configures its simulator.
