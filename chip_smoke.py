@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch port (raintpu_torch) on one NVIDIA GPU.
 
-Drives the port's three paths and checks them. The benchmark workload —
+Drives the port's four paths and checks them. The benchmark workload —
 KITTI 1242x375 at 10 mm/hr, batch 48, drops simulated on the card and
 packed to capacity 320, the four-rung hand ladder, cone_downsample 4
 with env_fold, five float32 planes — the online CLI path
 (``raintpu_torch.cli.main --online``) and the offline CLI path (no
 ``--online``: particle XML simulated by the port's tool, parsed by the
 native parser, the fitted ladder) on a 16-frame KITTI-size customdb
-dataset with the saturation mask and the envmap. Phases:
+dataset with the saturation mask and the envmap, and the nuScenes path
+(the depth tool, the online CLI at 100 mm/hr, depth smoothing and the
+6-camera rig's stage profile). Phases:
 
   1. device: a CUDA card is required; prints its name, its
      ``nvidia-smi`` name and power limit, and the TF32 flags (off);
@@ -52,7 +54,27 @@ dataset with the saturation mask and the envmap. Phases:
      renders of white, naive_db, noise and a synthetic pano on the card
      against the CPU render of frames 0-1; raster ms per regime;
  14. export: a 4-frame online run with ``--export_xml`` whose XML,
-     re-parsed, holds every frame's simulated drops.
+     re-parsed, holds every frame's simulated drops;
+ 15. nuscenes depth: a synthetic nuScenes tree made from a seed (the
+     v1.0-trainval tables, one scene of 12 CAM_FRONT frames of 1600x900
+     as .npy, a 34,000-point LIDAR_TOP sweep per frame, the ego at
+     10 m/s); the port's depth tool writes every frame's map on the card,
+     and frames 0-1 must equal the CPU's maps bit for bit;
+ 16. nuscenes cli: ``cli.main --dataset nuscenes --online`` at 100 mm/hr
+     with the fitted ladder, batches of 6, the envmap saved, and the
+     simulation capacity sized to the whole population: nothing
+     truncated or overflowed, one raster and one blur launch per batch,
+     frame 0 against the CPU render of the same drops and texture picks;
+ 17. depth blur: ``tools.smooth_depth.improve_depth`` on a 900x1600 map
+     on the card (one launch of the blur kernel at 7 taps) against the
+     same smoothing on the CPU, and the 7-tap blur against its plain
+     version;
+ 18. nuscenes rig: ``tools.stage_profile --nuscenes`` (6 frames of
+     1600x900 at 100 mm/hr, the full population, a fitted ladder): stage
+     times, then on that batch the raster kernel against its plain
+     version (rung by rung and all rungs in one launch), two launches
+     bit-identical, raster ms against its bound, the fog's blur at
+     (24, 900, 1600) and the device's busy share.
 
 Each kernel time is printed beside the one recorded for the kernel's
 first design (one block per drop for the raster kernel, 32x128 tiles
@@ -61,8 +83,9 @@ its previous design's (row chunks, one launch per rung; PERF.md section
 6). Each phase's wall time is printed after it.
 
 Prints a kernels JSON line (launches by path: bench, cli, offline,
-regimes), then ``{"ok": true, "device": ...}`` as the last line. Any
-failing phase raises and the script exits non-zero.
+regimes, nuscenes, and depth for the blur), then ``{"ok": true,
+"device": ...}`` as the last line. Any failing phase raises and the
+script exits non-zero.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -80,34 +103,30 @@ import torch
 import torch.nn.functional as F
 
 from raintpu_torch import cli, cuda_build
+from raintpu_torch.data import db
+from raintpu_torch.data.nuscenes_data import NuScenesCameraData
 from raintpu_torch.data.textures import (procedural_streak_database,
                                          texture_bank)
 from raintpu_torch.ops import blur_kernel, fog, fused_raster, rasterize
 from raintpu_torch.ops.blur import cv2_gaussian_kernel, separable_blur_hw
 from raintpu_torch.ops.fused_raster import N_PLANES, N_PLANES_SAT
-from raintpu_torch.ops.rasterize import (BucketSpec, RasterConfig,
-                                         select_textures)
+from raintpu_torch.ops.rasterize import RasterConfig, select_textures
 from raintpu_torch.particles import native, xml_io
 from raintpu_torch.particles.schema import TYPE_BIG, compact_drop_batch
 from raintpu_torch.physics.simulator import (SimConfig, frame_generator,
                                              simulate_frames,
                                              simulate_frames_keyed)
 from raintpu_torch.render import frame, pipeline
-from raintpu_torch.render.camera import CameraSettings, RenderSettings
-from raintpu_torch.render.online import OnlineRenderJob
-from raintpu_torch.tools import particles_simulation
+from raintpu_torch.render.camera import (CameraSettings, RenderSettings,
+                                         settings_from_dict)
+from raintpu_torch.tools import (nuscenes_depth, particles_simulation,
+                                 smooth_depth, stage_profile)
 
 H, W = 375, 1242
 BATCH = 48
 FALLRATE = 10.0
 CAPACITY = 320
 SIM_CAPACITY = 512
-# The benchmark's hand ladder (ph, pw, radius, capacity, modes_y,
-# modes_x, ranks), as bench.py runs it.
-LADDER = (BucketSpec(24, 32, 5, 224, 12, 6, 3),
-          BucketSpec(48, 32, 8, 64, 12, 6, 3),
-          BucketSpec(96, 64, 12, 32, 24, 10, 4),
-          BucketSpec(112, 96, 20, 16, 16, 8, 4))
 # Kernel against plain: the same float32 operations, each pixel's sums
 # in the same order (the kernel is built with --fmad=false); cos, tanh
 # and log round differently on the card.
@@ -145,6 +164,20 @@ CLI_CAPACITY = 2048       # the CLI's --drop_capacity default
 # The JAX package's window plan (fused_kernel.plan_window): windows over
 # MAX_SLAB_AREA run in row tiles, the multi-tile kernel body (K2).
 MAX_SLAB_AREA = 80_000
+
+# The nuScenes path: one second of CAM_FRONT (12 frames at 12 Hz) at
+# 1600x900 through the online CLI at 100 mm/hr, batches of 6 (the
+# 6-camera rig's batch); LiDAR sweeps of a 32-beam LIDAR_TOP's size.
+NUSC_FRAMES = 12
+NUSC_BATCH = 6
+NUSC_FALLRATE = 100
+NUSC_HW = (900, 1600)
+NUSC_POINTS = 34_000
+NUSC_SPEED_MPS = 10.0
+# smooth_depth on the card against the CPU: metres, float32 sums of the
+# 7 taps in another order.
+DEPTH_ATOL = 1e-4
+DEPTH_RTOL = 1e-5
 
 # Peak rates of one H100 SXM (NVIDIA data sheet) for the bounds.
 PEAK_FP32_FLOPS = 67e12
@@ -302,11 +335,41 @@ def raster_bound(rungs, image_hw, n_planes):
     return bound_ms(ops, nbytes) + (px,)
 
 
+def tile_lists(rungs, image_hw):
+    """(longest, over, blocks): the longest drop list of the ``blocks``
+    blocks of a raster launch over ``rungs`` — the valid windows, clipped
+    to the image, that meet the block's image tile — and the number of
+    blocks whose list exceeds the kernel's capacity (drawn in rounds)."""
+    h, w = image_hw
+    th, tw = fused_raster.TILE_HW
+    ny, nx = -(-h // th), -(-w // tw)
+    b = rungs[0].n_valid.shape[0]
+    dev = rungs[0].anchor.device
+    diff = torch.zeros((b, ny + 1, nx + 1), dtype=torch.int64, device=dev)
+    for r in rungs:
+        ph, pw = r.patch_hw
+        c = r.anchor.shape[1]
+        ax, ay = r.anchor[..., 0].long(), r.anchor[..., 1].long()
+        x1, y1 = torch.clamp(ax + pw, max=w), torch.clamp(ay + ph, max=h)
+        keep = ((torch.arange(c, device=dev)[None, :] < r.n_valid[:, None])
+                & (x1 > ax) & (y1 > ay))
+        frame_i = torch.arange(b, device=dev)[:, None].expand(b, c)[keep]
+        tx0, ty0 = ax[keep] // tw, ay[keep] // th
+        tx1, ty1 = (x1[keep] - 1) // tw + 1, (y1[keep] - 1) // th + 1
+        for ys, xs, sign in ((ty0, tx0, 1), (ty0, tx1, -1), (ty1, tx0, -1),
+                             (ty1, tx1, 1)):
+            diff.index_put_((frame_i, ys, xs),
+                            torch.full_like(ys, sign), accumulate=True)
+    counts = diff.cumsum(1).cumsum(2)[:, :ny, :nx]
+    cap = fused_raster.LIST_CAP
+    return int(counts.max()), int((counts > cap).sum()), counts.numel()
+
+
 def workload_phase(dev):
     settings = RenderSettings(camera=CameraSettings())  # KITTI defaults
     cfg = frame.PipelineConfig(
         settings=settings, image_hw=(H, W), fallrate=FALLRATE,
-        raster=RasterConfig(buckets=LADDER, modal_blur=True),
+        raster=RasterConfig(buckets=stage_profile.HAND_LADDER),
         cone_downsample=4)
     gen = torch.Generator(device=dev).manual_seed(0)
     sim_cfg = SimConfig.from_settings(settings, capacity=SIM_CAPACITY)
@@ -478,52 +541,61 @@ def library_blur(x, taps_t, r):
     return F.conv2d(y, taps_t.view(1, 1, 1, -1))[:, 0]
 
 
-def blur_phase(dev, smi):
+def blur_case(tag, name, x, taps, smi):
     """The stencil blur kernel against its plain version (dense band
-    matmuls) on the CLI and bench fog stacks and a multi-fold shape."""
-    taps = cv2_gaussian_kernel(fog.FOG_BLUR_KSIZE, fog.FOG_BLUR_SIGMA)
+    matmuls) on ``x`` with ``taps``: kernel, plain, conv2d and bound ms,
+    and, for the shapes of FIRST_DESIGN_MS, the kernel under other tile
+    shapes."""
     r = (taps.shape[0] - 1) // 2
-    taps_t = torch.as_tensor(taps, device=dev)
+    shape = tuple(x.shape)
+    got = blur_kernel.separable_blur(x, taps)
+    want = separable_blur_hw(x, taps)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    phase(f"[{tag}] {name} {shape}, {taps.shape[0]} taps: max|kernel-plain| "
+          f"{err:.3g}")
+    if not err <= BLUR_ATOL:
+        raise AssertionError(f"blur {name}: kernel off its plain "
+                             f"version by {err} > {BLUR_ATOL}")
+    ms = event_ms(lambda: blur_kernel.separable_blur(x, taps), 20)
+    plain = event_ms(lambda: separable_blur_hw(x, taps), 5)
+    lib = None
+    if r < min(shape[1:]):
+        taps_t = torch.as_tensor(taps, device=x.device)
+        lib_err = (library_blur(x, taps_t, r) - want).abs().max().item()
+        lib = event_ms(lambda: library_blur(x, taps_t, r), 20)
+        phase(f"[{tag}] {name}: conv2d vs plain {lib_err:.3g}")
+    n = x.numel()
+    bnd, by = bound_ms(4 * taps.shape[0] * n, 8 * n)
+    plan = blur_kernel.blur_plan(*shape, r)
+    first = (f" (first design {FIRST_DESIGN_MS[name]})"
+             if name in FIRST_DESIGN_MS else "")
+    phase(f"[{tag}] {name}: kernel {ms:.4f} ms{first}, plain {plain:.4f}"
+          f" ms, conv2d {'n/a' if lib is None else f'{lib:.4f}'} ms, "
+          f"bound {bnd:.4f} ms ({by}); tile {plan.tile_h}x"
+          f"{plan.tile_w}, {plan.smem_bytes} B shared; on {smi}")
+    if name in FIRST_DESIGN_MS:
+        sweep = swept_ms(blur_kernel, "TILE_HW", SWEEP_TILE_HW,
+                         lambda: blur_kernel.separable_blur(x, taps), 20)
+        phase(f"[{tag}] {name}: kernel ms by tile (* in use): {sweep}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                bound_by=by, max_abs_err=err)
+
+
+def blur_phase(dev, smi):
+    """The stencil blur kernel against its plain version on the CLI and
+    bench fog stacks, an odd and a multi-fold shape."""
+    taps = cv2_gaussian_kernel(fog.FOG_BLUR_KSIZE, fog.FOG_BLUR_SIGMA)
     gen = torch.Generator(device=dev).manual_seed(7)
-    worst, rec = 0.0, None
-    for name, shape in (("cli fog", (4 * CLI_BATCH, H, W)),
-                        ("bench fog", (4 * BATCH, H, W)),
-                        ("odd width", (2, 37, 333)),
-                        ("multi-fold", (2, 9, 300))):
-        x = torch.rand(shape, generator=gen, device=dev)
-        got = blur_kernel.separable_blur(x, taps)
-        want = separable_blur_hw(x, taps)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        phase(f"[blur] {name} {shape}: max|kernel-plain| {err:.3g}")
-        if not err <= BLUR_ATOL:
-            raise AssertionError(f"blur {name}: kernel off its plain "
-                                 f"version by {err} > {BLUR_ATOL}")
-        worst = max(worst, err)
-        ms = event_ms(lambda: blur_kernel.separable_blur(x, taps), 20)
-        plain = event_ms(lambda: separable_blur_hw(x, taps), 5)
-        lib = None
-        if r < min(shape[1:]):
-            lib_err = (library_blur(x, taps_t, r) - want).abs().max().item()
-            lib = event_ms(lambda: library_blur(x, taps_t, r), 20)
-            phase(f"[blur] {name}: conv2d vs plain {lib_err:.3g}")
-        n = x.numel()
-        bnd, by = bound_ms(4 * taps.shape[0] * n, 8 * n)
-        plan = blur_kernel.blur_plan(*shape, r)
-        first = (f" (first design {FIRST_DESIGN_MS[name]})"
-                 if name in FIRST_DESIGN_MS else "")
-        phase(f"[blur] {name}: kernel {ms:.4f} ms{first}, plain {plain:.4f}"
-              f" ms, conv2d {'n/a' if lib is None else f'{lib:.4f}'} ms, "
-              f"bound {bnd:.4f} ms ({by}); tile {plan.tile_h}x"
-              f"{plan.tile_w}, {plan.smem_bytes} B shared; on {smi}")
-        if name in FIRST_DESIGN_MS:
-            sweep = swept_ms(blur_kernel, "TILE_HW", SWEEP_TILE_HW,
-                             lambda: blur_kernel.separable_blur(x, taps), 20)
-            phase(f"[blur] {name}: kernel ms by tile (* in use): {sweep}")
-        if name == "cli fog":
-            rec = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                       bound_by=by)
-    rec["max_abs_err"] = worst
+    recs = {name: blur_case("blur", name,
+                            torch.rand(shape, generator=gen, device=dev),
+                            taps, smi)
+            for name, shape in (("cli fog", (4 * CLI_BATCH, H, W)),
+                                ("bench fog", (4 * BATCH, H, W)),
+                                ("odd width", (2, 37, 333)),
+                                ("multi-fold", (2, 9, 300)))}
+    rec = dict(recs["cli fog"])
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
     return rec
 
 
@@ -770,7 +842,9 @@ def compare_with_cpu(tag, out, ref, names, frames=slice(0, 2)):
     for name in names:
         d = (getattr(out, name)[frames].cpu() - getattr(ref, name)).abs()
         far = (d > RENDER_FAR).float().mean().item()
-        phase(f"[{tag}] GPU vs CPU {name} (frames 0-1): max {d.max():.3g} "
+        which = (f"frame {frames.start}" if frames.stop - frames.start == 1
+                 else f"frames {frames.start}-{frames.stop - 1}")
+        phase(f"[{tag}] GPU vs CPU {name} ({which}): max {d.max():.3g} "
               f"mean {d.mean():.3g}; share off by > {RENDER_FAR:g}: "
               f"{far:.3g}")
         if d.max().item() > RENDER_MAX_ABS or far > RENDER_MAX_FAR_FRACTION:
@@ -1044,7 +1118,7 @@ def export_phase(dev):
     """A 4-frame online run with --export_xml (batch 2): the written XML
     re-parsed by load_streaks holds each frame's valid simulated drops."""
     jobs = []
-    run = OnlineRenderJob.run
+    run = pipeline.RenderJob.run
 
     def keep(self):
         jobs.append(self)
@@ -1059,11 +1133,11 @@ def export_phase(dev):
                 "--online", "--export_xml", "--intensity", str(CLI_FALLRATE),
                 "--batch_size", "2", "--save_format", "npy", "--noverbose",
                 "--device", str(dev)]
-        OnlineRenderJob.run = keep
+        pipeline.RenderJob.run = keep
         try:
             rc = cli.main(argv)
         finally:
-            OnlineRenderJob.run = run
+            pipeline.RenderJob.run = run
         xml = os.path.join(particles, "customdb", "drive", "rain",
                            f"{CLI_FALLRATE}mm", "0000_camera0.xml")
         # Read back at the simulation's own image size, as the offline
@@ -1155,6 +1229,12 @@ def cli_stages_phase(call, smi):
     sweep = swept_ms(fused_raster, "TILE_HW", SWEEP_RASTER_TILE_HW, raster,
                      10)
     phase(f"[stages] raster ms by image tile (* in use): {sweep}")
+    busy_share("stages", render, smi)
+
+
+def busy_share(tag, render, smi):
+    """The device's busy share over 3 calls of ``render`` under
+    torch.profiler: device kernel time over wall time."""
     render()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -1169,8 +1249,341 @@ def cli_stages_phase(call, smi):
                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     busy = (f"{device_ms / wall_ms:.3f}" if device_ms > 0
             else "not measured (no device time in the trace)")
-    phase(f"[stages] 3 renders: wall {wall_ms:.3f} ms, device kernel time "
+    phase(f"[{tag}] 3 renders: wall {wall_ms:.3f} ms, device kernel time "
           f"{device_ms:.3f} ms, device busy share {busy}, on {smi}")
+
+
+def _quat_z(deg):
+    """(w, x, y, z) of a rotation by ``deg`` about z."""
+    half = np.deg2rad(deg) / 2.0
+    return [float(np.cos(half)), 0.0, 0.0, float(np.sin(half))]
+
+
+def _lidar_sweep(rng):
+    """One LIDAR_TOP sweep in nuScenes' .pcd.bin layout (x, y, z,
+    intensity, ring; float32): 32 beams from -30.67 to +10.67 degrees,
+    NUSC_POINTS returns from the ground 1.84 m below, from obstacles
+    3-70 m away on half the rays, and from 60-100 m elsewhere."""
+    per_beam = NUSC_POINTS // 32
+    el = np.deg2rad(np.linspace(-30.67, 10.67, 32))[:, None] + np.zeros(
+        (1, per_beam))
+    az = rng.uniform(0.0, 2 * np.pi, el.shape)
+    ground = np.where(el < 0, 1.84 / np.sin(-np.minimum(el, -1e-3)), np.inf)
+    obstacle = np.where(rng.rand(*el.shape) < 0.5,
+                        rng.uniform(3.0, 70.0, el.shape), np.inf)
+    r = np.minimum(ground, obstacle)
+    r = np.where(np.isfinite(r), np.minimum(r, 100.0),
+                 rng.uniform(60.0, 100.0, el.shape))
+    scan = np.stack([r * np.cos(el) * np.sin(az), r * np.cos(el) * np.cos(az),
+                     r * np.sin(el), rng.rand(*el.shape) * 100,
+                     np.broadcast_to(np.arange(32.0)[:, None], el.shape)], -1)
+    return scan.reshape(-1, 5).astype(np.float32)
+
+
+def _write_nuscenes(root):
+    """A synthetic nuScenes tree under ``root``, made from a seed: the
+    v1.0-trainval tables, one scene of NUSC_FRAMES CAM_FRONT frames (one
+    second at 12 Hz) saved as 1600x900 RGB .npy files (named .npy in
+    sample_data, so no image codec is needed) with CAM_FRONT's and
+    LIDAR_TOP's mountings, a LiDAR sweep per frame, and the ego moving
+    NUSC_SPEED_MPS along x. Returns the frame names."""
+    rng = np.random.RandomState(11)
+    vdir = os.path.join(root, "v1.0-trainval")
+    cams = os.path.join(root, "samples", "CAM_FRONT")
+    sweeps = os.path.join(root, "sweeps", "LIDAR_TOP")
+    for d in (vdir, cams, sweeps):
+        os.makedirs(d)
+
+    def write(name, rows):
+        with open(os.path.join(vdir, name + ".json"), "w") as fh:
+            json.dump(rows, fh)
+
+    write("sensor", [
+        {"token": "s_cam", "channel": "CAM_FRONT", "modality": "camera"},
+        {"token": "s_lidar", "channel": "LIDAR_TOP", "modality": "lidar"}])
+    write("calibrated_sensor", [
+        {"token": "cs_cam", "sensor_token": "s_cam",
+         "translation": [1.70, 0.016, 1.51],
+         "rotation": [0.5, -0.5, 0.5, -0.5],     # camera z = ego x
+         "camera_intrinsic": [[1266.4, 0.0, 816.3], [0.0, 1266.4, 491.5],
+                              [0.0, 0.0, 1.0]]},
+        {"token": "cs_lidar", "sensor_token": "s_lidar",
+         "translation": [0.944, 0.0, 1.84], "rotation": _quat_z(-90.0),
+         "camera_intrinsic": []}])
+    step = NUSC_SPEED_MPS / 12.0
+    write("ego_pose", [{"token": f"pose{i}",
+                        "translation": [600.0 + step * i, 1600.0, 0.0],
+                        "rotation": [1.0, 0.0, 0.0, 0.0]}
+                       for i in range(NUSC_FRAMES)])
+    write("scene", [{"token": "scene0", "first_sample_token": "sample0",
+                     "name": "scene-0001"}])
+    write("sample", [{"token": f"sample{i}", "scene_token": "scene0",
+                      "data": {"CAM_FRONT": f"cam{i}",
+                               "LIDAR_TOP": f"lidar{i}"}}
+                     for i in range(NUSC_FRAMES)])
+    names = [f"n008__CAM_FRONT__{1533151603512404 + 83333 * i}"
+             for i in range(NUSC_FRAMES)]
+    rows = []
+    for i, name in enumerate(names):
+        nxt = i + 1 < NUSC_FRAMES
+        rows += [{"token": f"cam{i}", "sample_token": f"sample{i}",
+                  "calibrated_sensor_token": "cs_cam",
+                  "ego_pose_token": f"pose{i}",
+                  "filename": f"samples/CAM_FRONT/{name}.npy",
+                  "is_key_frame": True, "next": f"cam{i + 1}" if nxt else ""},
+                 {"token": f"lidar{i}", "sample_token": f"sample{i}",
+                  "calibrated_sensor_token": "cs_lidar",
+                  "ego_pose_token": f"pose{i}",
+                  "filename": f"sweeps/LIDAR_TOP/{name}.pcd.bin",
+                  "is_key_frame": True, "next": ""}]
+    write("sample_data", rows)
+    h, w = NUSC_HW
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    for name in names:
+        img = np.clip(rng.rand(h, w, 3) * 0.4 + 0.5 * yy + 0.05, 0, 1)
+        np.save(os.path.join(cams, name + ".npy"),
+                (img * 255).astype(np.uint8))
+        _lidar_sweep(rng).tofile(os.path.join(sweeps, name + ".pcd.bin"))
+    return names
+
+
+def nuscenes_depth_phase(root, dev, smi):
+    """The depth tool on the card writes every frame's map; frames 0-1
+    must equal the same maps made on the CPU, bit for bit."""
+    data = os.path.join(root, "source", "nuscenes")
+    out = os.path.join(root, "depth", "nuscenes")
+    t0 = time.perf_counter()
+    n = nuscenes_depth.process(data, out, device=dev)
+    torch.cuda.synchronize()
+    tool_s = time.perf_counter() - t0
+    if n != NUSC_FRAMES:
+        raise AssertionError(f"the depth tool wrote {n} of {NUSC_FRAMES} "
+                             "maps")
+    ds = NuScenesCameraData(data)
+    chain = ds._chain(ds.scene_tokens[0])
+    for i, tok in enumerate(chain[:2]):
+        name = os.path.splitext(os.path.basename(
+            ds.db.get("sample_data", tok)["filename"]))[0]
+        card = np.load(os.path.join(out, name + ".npy"))
+        cpu = ds.dense_depth_map(tok, device="cpu").numpy()
+        uv, _ = ds.project_lidar_depth(tok)
+        same = np.array_equal(card, cpu)
+        phase(f"[nuscenes depth] frame {i}: {len(uv)} LiDAR points in the "
+              f"image, {float((card < 300).mean()):.4f} of the pixels "
+              f"measured; card map equals the CPU map {same}")
+        if not same:
+            raise AssertionError(f"depth frame {i}: the card's map differs "
+                                 "from the CPU's")
+    map_ms = median_ms(lambda: ds.dense_depth_map(chain[0], device=dev))
+    phase(f"[nuscenes depth] the tool: {tool_s * 1e3 / n:.2f} ms per frame "
+          f"(host projection and .npy write included); dense_depth_map on "
+          f"the card {map_ms:.3f} ms, on {smi}")
+
+
+def check_nuscenes_outputs(out_root, scene, names):
+    """Every frame's rainy image, rain mask and envmap on disk; rain in
+    every frame."""
+    rain = os.path.join(out_root, "nuscenes", scene, "rain",
+                        f"{NUSC_FALLRATE}mm")
+    want = sorted(n + ".npy" for n in names)
+    for sub in (os.path.join(rain, "rainy_image"),
+                os.path.join(rain, "rain_mask"),
+                os.path.join(out_root, "nuscenes", scene, "envmap")):
+        if sorted(os.listdir(sub)) != want:
+            raise AssertionError(f"nuscenes cli: missing outputs in {sub}")
+    masses = [float(np.load(os.path.join(rain, "rain_mask", n)).sum())
+              for n in want]
+    phase(f"[nuscenes cli] mask mass per frame min {min(masses):.2f} max "
+          f"{max(masses):.2f}")
+    if not min(masses) > 0:
+        raise AssertionError("nuscenes cli: a frame rendered no rain")
+
+
+def nuscenes_cli_phase(root, names, dev, smi):
+    """The online CLI on the nuScenes tree on the card, end to end, at
+    100 mm/hr with the full population: the fitted ladder, one raster and
+    one blur launch per batch of 6, nothing truncated or overflowed, and
+    frame 0 against the CPU render of the same drops and texture picks."""
+    settings = settings_from_dict(db.settings("nuscenes"))
+    capacity = stage_profile.full_population_capacity(settings,
+                                                      NUSC_FALLRATE)
+    out_root = os.path.join(root, "output")
+    argv = ["--dataset", "nuscenes", "-k", os.path.join(root, "source"),
+            "-d", os.path.join(root, "depth"), "--output", out_root,
+            "--online", "--intensity", str(NUSC_FALLRATE),
+            "--batch_size", str(NUSC_BATCH), "--raster_profile", "fitted",
+            "--save_envmap", "--save_format", "npy",
+            "--drop_capacity", str(capacity), "--noverbose",
+            "--device", str(dev)]
+    rc, stats, call, launches, carried, blur_launches, wall = run_cli(argv)
+    phase(f"[nuscenes cli] rc {rc}; --drop_capacity {capacity}; stats "
+          f"{stats}; wall {wall:.2f} s; raster launches {launches}, by the "
+          f"windows each carried {carried}; blur launches {blur_launches}")
+    kinds = check_cli_run("nuscenes cli", rc, stats, launches, carried,
+                          blur_launches, NUSC_FRAMES, NUSC_BATCH)
+    if stats.get("truncated_drops") != 0:
+        raise AssertionError("nuscenes cli: the simulation capacity "
+                             "truncated the population")
+    check_nuscenes_outputs(out_root, "scene0", names)
+
+    (bg, depth, drops, tex, edges, cfg), kw, out = call
+    raster = cfg.raster
+    multi = [(b.ph, b.pw) for b in raster.buckets
+             if tpu_tiles(b.ph, b.pw) > 1]
+    counts = drops.count().tolist()
+    phase(f"[nuscenes cli] fitted ladder (ph, pw, radius, capacity, ranks): "
+          f"{_ladder(raster)}; rungs multi-tile in the JAX plan (K2): "
+          f"{multi or 'none'}; drops per frame of the first batch {counts} "
+          f"(render capacity {drops.capacity})")
+    _, env, _ = frame.frame_background(bg, depth, cfg)
+    prep, _ = frame.drop_fused_params(env, drops, tex, edges, cfg,
+                                      tex_idx=kw["tex_idx"])
+    rungs = frame.kernel_rungs(prep, cfg)
+    tex_hw = tuple(tex.raw.shape[1:])
+    err = against_plain("nuscenes cli", "the first batch, all rungs", rungs,
+                        cfg.image_hw, tex_hw, N_PLANES)
+    first = fused_raster.fused_raster_composite(rungs, cfg.image_hw, tex_hw)
+    second = fused_raster.fused_raster_composite(rungs, cfg.image_hw, tex_hw)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError("nuscenes cli: two launches differ")
+    ms = event_ms(lambda: fused_raster.fused_raster_composite(
+        rungs, cfg.image_hw, tex_hw), 10)
+    bnd, by, px = raster_bound(rungs, cfg.image_hw, N_PLANES)
+    longest, over, blocks = tile_lists(rungs, cfg.image_hw)
+    phase(f"[nuscenes cli] two launches bit-identical; raster {ms:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by}; {px} window px), {ms / bnd:.2f}x the "
+          f"bound; drops per rung {[int(r.n_valid.sum()) for r in rungs]}; "
+          f"longest tile list {longest} (capacity {fused_raster.LIST_CAP}; "
+          f"{over} of {blocks} blocks drew in rounds), on {smi}")
+    t0 = time.perf_counter()
+    ref = cpu_render((bg, depth, drops, tex, edges), cfg, kw,
+                     frames=slice(0, 1))
+    phase(f"[nuscenes cli] the CPU render of frame 0 took "
+          f"{time.perf_counter() - t0:.2f} s")
+    compare_with_cpu("nuscenes cli", out, ref,
+                     ("rain_mask", "rainy_image", "envmap"),
+                     frames=slice(0, 1))
+    render_ms = median_ms(lambda: frame.render_frames(
+        bg, depth, drops, tex, edges, cfg, **kw))
+    phase(f"[nuscenes cli] render_frames of the first batch ({NUSC_BATCH} "
+          f"frames): {render_ms:.3f} ms; img_per_s {stats.get('img_per_s')} "
+          f"(the job's own wall clock, disk to disk), on {smi}")
+    multi_err = err if multi else 0.0
+    return kinds, dict(max_abs_err=err, multi_err=multi_err)
+
+
+def nuscenes_rig_phase(dev, smi):
+    """The nuScenes 6-camera rig (stage_profile --nuscenes): stage times,
+    then, on that batch's operands, the raster kernel against its plain
+    version (all rungs in one launch and rung by rung), two launches
+    bit-identical, raster ms against its bound, the fog's blur at
+    (24, 900, 1600) and the device's busy share."""
+    rec = stage_profile.main(["--nuscenes", "--json"])
+    phase("[nuscenes rig] ms per step of 6 frames: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in rec["ms_per_step"].items()))
+    phase("[nuscenes rig] deltas ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in rec["deltas_ms"].items()))
+    w = stage_profile.workload(stage_profile.parse_args(["--nuscenes"]))
+    cfg, drops, tex = w["cfg"], w["drops"], w["tex"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    _, env, _ = frame.frame_background(w["bg"], w["depth"], cfg)
+    prep, overflow = frame.drop_fused_params(env, drops, tex, w["edges"],
+                                             cfg, generator=gen)
+    rungs = frame.kernel_rungs(prep, cfg)
+    tex_hw = tuple(tex.raw.shape[1:])
+    counts = drops.count().tolist()
+    phase(f"[nuscenes rig] simulation capacity {w['sim_capacity']}, render "
+          f"capacity {w['render_capacity']}, drops per frame {counts}; "
+          f"overflow {int(overflow.sum())}; fitted ladder "
+          f"{_ladder(cfg.raster)}; drops per rung "
+          f"{[int(r.n_valid.sum()) for r in rungs]}")
+    if int(overflow.sum()):
+        raise AssertionError("nuscenes rig: drops overflowed their rung")
+    worst = worst_multi = 0.0
+    for i, rung in enumerate(rungs):
+        label = (f"rung {i} {rung.patch_hw} ({tpu_tiles(*rung.patch_hw)} TPU "
+                 "row tiles)")
+        err = against_plain("nuscenes rig", label, [rung], cfg.image_hw,
+                            tex_hw, N_PLANES)
+        worst = max(worst, err)
+        if tpu_tiles(*rung.patch_hw) > 1:
+            worst_multi = max(worst_multi, err)
+    every = against_plain("nuscenes rig", "all rungs", rungs, cfg.image_hw,
+                          tex_hw, N_PLANES)
+    first = fused_raster.fused_raster_composite(rungs, cfg.image_hw, tex_hw)
+    second = fused_raster.fused_raster_composite(rungs, cfg.image_hw, tex_hw)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError("nuscenes rig: two launches differ")
+    ms = event_ms(lambda: fused_raster.fused_raster_composite(
+        rungs, cfg.image_hw, tex_hw), 10)
+    plain = event_ms(lambda: fused_raster.fused_raster_plain(
+        rungs, cfg.image_hw, tex_hw), 1)
+    bnd, by, px = raster_bound(rungs, cfg.image_hw, N_PLANES)
+    longest, over, _ = tile_lists(rungs, cfg.image_hw)
+    phase(f"[nuscenes rig] two launches bit-identical; raster, all rungs in "
+          f"one launch: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}; {px} window px), {ms / bnd:.2f}x the bound; "
+          f"longest tile list {longest} ({over} blocks over "
+          f"{fused_raster.LIST_CAP}), on {smi}")
+    taps = cv2_gaussian_kernel(fog.FOG_BLUR_KSIZE, fog.FOG_BLUR_SIGMA)
+    x = torch.rand((4 * NUSC_BATCH,) + NUSC_HW, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(8))
+    blur = blur_case("nuscenes rig", "rig fog", x, taps, smi)
+    busy_share("nuscenes rig", lambda: frame.render_frames(
+        w["bg"], w["depth"], drops, tex, w["edges"], cfg, generator=gen),
+        smi)
+    return dict(max_abs_err=max(worst, every), multi_err=worst_multi,
+                ms=ms, plain_ms=plain, bound_ms=bnd, blur=blur)
+
+
+def depth_blur_phase(root, names, dev, smi):
+    """smooth_depth on one 900x1600 depth map of the nuScenes tree on the
+    card: its 7-tap Gaussian is one launch of the stencil kernel, held to
+    its plain version, and the whole smoothing (far planes included) to
+    the same smoothing on the CPU."""
+    depth = np.load(os.path.join(root, "depth", "nuscenes",
+                                 names[0] + ".npy"))
+    rgb = np.load(os.path.join(root, "source", "nuscenes", "samples",
+                               "CAM_FRONT", names[0] + ".npy"))
+    gray = (rgb.astype(np.float32) @ np.float32([0.299, 0.587, 0.114])
+            ).round().astype(np.uint8)
+    gray[:300] = gray[0, 0]          # a flat band: far planes to set
+    reset_counts()
+    got = smooth_depth.improve_depth(torch.as_tensor(gray, device=dev),
+                                     torch.as_tensor(depth, device=dev),
+                                     0.001, True)
+    torch.cuda.synchronize()
+    launches = blur_kernel.separable_blur.launches
+    want = smooth_depth.improve_depth(torch.as_tensor(gray),
+                                      torch.as_tensor(depth), 0.001, True)
+    d = (got.cpu() - want).abs()
+    bad = int((d > DEPTH_ATOL + DEPTH_RTOL * want.abs()).sum())
+    phase(f"[depth blur] improve_depth {tuple(depth.shape)}: blur launches "
+          f"{launches}; card vs CPU max {d.max().item():.3g} m "
+          f"({bad} values off by more than atol {DEPTH_ATOL} + rtol "
+          f"{DEPTH_RTOL}); far-plane pixels {int((want > 250).sum())}")
+    if launches != 1 or bad:
+        raise AssertionError("depth blur: improve_depth on the card must "
+                             "launch the blur once and match the CPU")
+    x = torch.rand((1,) + NUSC_HW, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(9))
+    rec = blur_case("depth blur", "gaussian", x, cv2_gaussian_kernel(
+        smooth_depth.GAUSS_KSIZE, smooth_depth.GAUSS_SIGMA), smi)
+    rec["launches"] = launches
+    return rec
+
+
+def nuscenes_phases(dev, smi):
+    """The [nuscenes] group on one synthetic tree: depth, CLI, depth
+    smoothing."""
+    with tempfile.TemporaryDirectory() as tmp:
+        names = _write_nuscenes(os.path.join(tmp, "source", "nuscenes"))
+        timed(nuscenes_depth_phase, tmp, dev, smi)
+        kinds, raster = timed(nuscenes_cli_phase, tmp, names, dev, smi)
+        depth = timed(depth_blur_phase, tmp, names, dev, smi)
+    return kinds, raster, depth
 
 
 def timed(fn, *args):
@@ -1202,18 +1615,20 @@ def main() -> None:
     offline_launches, offline_call = timed(offline_phase, dev, smi)
     regimes = timed(regimes_phase, offline_call, k1["ms"], smi)
     timed(export_phase, dev)
+    nusc, nusc_raster, depth = nuscenes_phases(dev, smi)
+    rig = timed(nuscenes_rig_phase, dev, smi)
     phase(f"[time] all phases: {time.perf_counter() - t_start:.2f} s")
     raster = dict(name="fused_raster", route="cuda", source=KERNEL_SOURCE,
                   plain_ms=k1["plain_ms"], bound_ms=k1_bound,
                   bound_by=k1_by, library_ms=None)
 
-    def by_path(kind, bench):
+    def by_path(kind, bench, **more):
         """Launches of the bench render, the online CLI run, the offline
-        CLI run and the regimes' renders that carried ``kind``, and
-        their sum."""
+        CLI run, the regimes' renders and the nuScenes CLI run that
+        carried ``kind`` (and ``more``), and their sum."""
         paths = {"bench": bench, "cli": cli_launches[kind],
                  "offline": offline_launches[kind],
-                 "regimes": regimes[kind]}
+                 "regimes": regimes[kind], "nuscenes": nusc[kind], **more}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     # K1 and K3 are one launch of the same kernel on the bench path (K1's
@@ -1221,20 +1636,27 @@ def main() -> None:
     print(f"[device] nvidia-smi: {smi}", flush=True)
     print(json.dumps({"kernels": [
         {**raster, "replaces": KERNEL_REPLACES, **by_path("k1", launches),
-         "max_abs_err": max(max_err, regimes["max_abs_err"]),
+         "max_abs_err": max(max_err, regimes["max_abs_err"],
+                            rig["max_abs_err"], nusc_raster["max_abs_err"]),
          "ms": k1["ms"]},
         {**raster, "name": "fused_raster_multitile",
          "replaces": K2_REPLACES, **by_path("k2", 0),
-         "max_abs_err": max(k2["max_abs_err"], regimes["multi_err"]),
+         "max_abs_err": max(k2["max_abs_err"], regimes["multi_err"],
+                            rig["multi_err"], nusc_raster["multi_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"]},
         {**raster, "name": "fused_raster_resident",
          "replaces": K3_REPLACES, **by_path("k3", launches),
          "max_abs_err": max(all_err, k2["all_rungs_err"],
-                            regimes["max_abs_err"]), "ms": k1["ms"]},
+                            regimes["max_abs_err"], rig["max_abs_err"],
+                            nusc_raster["max_abs_err"]),
+         "ms": k1["ms"]},
         {"name": "separable_blur", "route": "cuda", "source": BLUR_SOURCE,
-         "replaces": BLUR_REPLACES, **by_path("k4", blur_launches),
-         **blur}]}))
+         "replaces": BLUR_REPLACES,
+         **by_path("k4", blur_launches, depth=depth["launches"]),
+         **blur, "max_abs_err": max(blur["max_abs_err"],
+                                    rig["blur"]["max_abs_err"],
+                                    depth["max_abs_err"])}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,7 +11,7 @@ Plugins are searched in order:
 1. a user ``config.<name>`` module on sys.path — so config plugins
    written against the reference work unchanged;
 2. ``raintpu_torch.data.datasets.<name>`` (built-ins: kitti, customdb,
-   cityscapes).
+   cityscapes, nuscenes, nuscenes_gan).
 
 Settings keys and semantics are identical to the reference defaults
 (``common/db.py:8-70``); per-sequence overrides are selected by regex

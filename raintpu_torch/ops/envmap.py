@@ -60,16 +60,34 @@ def envmap_geometry(height: int, width: int,
         cyl_width=cyl_width, min_x=int(min_x), border=cyl_width // 2)
 
 
+_index_cache = {}
+
+
 def _source_indices(geom: EnvmapGeometry, device="cpu",
                     dtype=torch.float32):
     """Per-envmap-pixel source (row, col) + coverage mask, each
-    (H, W_env); indices int64, clamped in-bounds."""
+    (H, W_env); indices int64, clamped in-bounds.
+
+    The map is computed on the CPU, once per geometry and dtype, and
+    kept on each device it is asked for: a card's tan and sqrt round
+    differently, which moves an index whose coordinate sits at a
+    rounding boundary by a pixel, so every device reads the pixels the
+    CPU's map reads."""
+    key = (geom, str(device), dtype)
+    if key not in _index_cache:
+        _index_cache[key] = tuple(
+            t.to(device) for t in _host_source_indices(geom, dtype))
+    return _index_cache[key]
+
+
+def _host_source_indices(geom: EnvmapGeometry, dtype):
+    """:func:`_source_indices` on the CPU."""
     h, w = geom.height, geom.width
     cx, cy = w // 2, h // 2
     f = float(geom.focal_env)
 
     # Column map through mirror extension -> cylinder column.
-    c_total = torch.arange(geom.env_width, device=device)
+    c_total = torch.arange(geom.env_width)
     b, wc = geom.border, geom.cyl_width
     cyl_col = torch.where(
         c_total < b, b - 1 - c_total,
@@ -79,7 +97,7 @@ def _source_indices(geom: EnvmapGeometry, device="cpu",
     dc = f * torch.tan((cyl_col.to(dtype) + geom.min_x - cx) / f)
     src_c = torch.round(dc + cx).to(torch.int64)            # (W_env,)
 
-    r = torch.arange(h, dtype=dtype, device=device)
+    r = torch.arange(h, dtype=dtype)
     dr = (r[:, None] - cy) * torch.sqrt(dc[None, :] ** 2 + f * f) / f
     src_r = torch.round(dr + cy).to(torch.int64)            # (H, W_env)
 

@@ -1,9 +1,10 @@
-"""Console logging and progress utilities.
+"""Console logging, progress and stage-timing utilities.
 
-The port's copy of the parts of ``raintpu.utils.logging`` the render
-job uses: the ANSI-tagged warning (reference ``my_utils.py:22-31``),
-natural file ordering (``my_utils.py:19-20``) and the nested progress
-line with its remaining-time estimate (``my_utils.py:100-134``).
+The port's copy of ``raintpu.utils.logging``: the ANSI-tagged messages
+(reference ``my_utils.py:22-31``), the progress bar (``my_utils.py:34-52``),
+natural file ordering (``my_utils.py:19-20``), the nested progress
+line with its remaining-time estimate (``my_utils.py:100-134``) and
+named-stage wall-clock accounting.
 """
 
 from __future__ import annotations
@@ -11,12 +12,31 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+import sys
 import time
 from typing import List, Optional
 
 
+def print_error(msg: str) -> None:
+    print(f"\n\x1b[2;30;41m[ERROR]\x1b[0m  {msg}")
+
+
+def print_success(msg: str) -> None:
+    print(f"\n\x1b[2;30;42m[SUCCESS]\x1b[0m  {msg}")
+
+
 def print_warning(msg: str) -> None:
     print(f"\x1b[2;30;43m[WARNING]\x1b[0m  {msg}")
+
+
+def progress_bar(iteration: int, total: int, prefix: str = "Progress:",
+                 suffix: str = "Complete", length: int = 60) -> None:
+    frac = iteration / float(max(total, 1))
+    filled = int(length * iteration // max(total, 1))
+    bar = "#" * filled + "-" * (length - filled)
+    sys.stdout.write(f"\r{prefix} |{bar}| {100 * frac:.2f}% {suffix}")
+    if iteration >= total:
+        print()
 
 
 def natural_sorted(names):
@@ -83,3 +103,32 @@ class ProgressScope:
         eta = self.eta_s()
         eta_str = f"{eta // 60:02.0f}m" if eta is not None else "--"
         return "  ".join(parts) + f"   >  ETA {eta_str}"
+
+
+class StageTimer:
+    """Lightweight named-stage wall-clock accounting."""
+
+    def __init__(self):
+        self.totals = {}
+        self.counts = {}
+
+    def add(self, name: str, seconds: float) -> None:
+        self.totals[name] = self.totals.get(name, 0.0) + seconds
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def timeit(self, name: str):
+        timer = self
+
+        class _Ctx:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+
+            def __exit__(self, *a):
+                timer.add(name, time.perf_counter() - self.t0)
+
+        return _Ctx()
+
+    def report(self) -> str:
+        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
+        return "\n".join(
+            f"  {k:<24s} {v:8.3f}s  x{self.counts[k]}" for k, v in rows)

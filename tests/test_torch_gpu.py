@@ -342,6 +342,10 @@ def test_kernel_lone_drop_fills_the_fitted_tail_rung(cuda, n_planes):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,ksize", [((8, 375, 1242), 25),
+                                         # the nuScenes fog stack and
+                                         # the depth smoothing's 7 taps
+                                         ((24, 900, 1600), 25),
+                                         ((1, 900, 1600), 7),
                                          ((3, 40, 200), 11),
                                          ((2, 9, 300), 25),
                                          ((1, 17, 130), 129),
@@ -399,3 +403,54 @@ def test_blur_kernel_wide_axes_every_radius(cuda, shape, ksize):
     rows = sum(t * xp[:, i:i + h] for i, t in enumerate(taps))
     want = sum(t * rows[:, :, i:i + w] for i, t in enumerate(taps))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_dense_depth_map_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The z-buffer (scatter_reduce amin) and the min-filter dilation on
+    the card give the CPU's map bit for bit, pixels hit twice included."""
+    from raintpu_torch.data.nuscenes_data import NuScenesCameraData
+    from torch_nuscenes_tree import write_tree
+
+    ds = NuScenesCameraData(write_tree(str(tmp_path / "nusc"), 2))
+    for tok in ("sd_cam0", "sd_cam1"):
+        got = ds.dense_depth_map(tok, device=cuda)
+        want = ds.dense_depth_map(tok, device="cpu")
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_improve_depth_on_the_card(cuda):
+    """smooth_depth at 900 x 1600 on the card: the 7-tap Gaussian is one
+    launch of the stencil kernel, held to the CPU's plain version."""
+    from raintpu_torch.tools.smooth_depth import improve_depth
+
+    rng = np.random.RandomState(0)
+    gray = (rng.rand(900, 1600) * 255).astype(np.uint8)
+    gray[100:400, 200:900] = 90
+    depth = (rng.rand(900, 1600) * 80 + 1).astype(np.float32)
+    want = improve_depth(torch.as_tensor(gray), torch.as_tensor(depth),
+                         0.001, True)
+    before = blur_kernel.separable_blur.launches
+    got = improve_depth(torch.as_tensor(gray, device=cuda),
+                        torch.as_tensor(depth, device=cuda), 0.001, True)
+    torch.cuda.synchronize()
+    assert blur_kernel.separable_blur.launches - before == 1
+    assert (want > 250).sum() > 10000
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_envmap_on_the_card_equals_the_cpu(cuda):
+    """The full-resolution envmap of a 1600 x 900 nuScenes frame (focal
+    5.5 mm): the card reads the source pixels the CPU's index map reads
+    (a map computed on the card moved some by a pixel)."""
+    from raintpu_torch.ops import envmap
+
+    geom = envmap.envmap_geometry(900, 1600, 5.5)
+    img = torch.rand((2, 900, 1600, 3), generator=torch.Generator()
+                     .manual_seed(3))
+    want = envmap.generate_envmap(img, geom)
+    got = envmap.generate_envmap(img.to(cuda), geom)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)

@@ -38,7 +38,15 @@ _SCRIPT = textwrap.dedent("""
                  "raintpu_torch.particles.xml_io",
                  "raintpu_torch.particles.native",
                  "raintpu_torch.tools.particles_simulation",
-                 "raintpu_torch.data.datasets.cityscapes"):
+                 "raintpu_torch.data.datasets.cityscapes",
+                 "raintpu_torch.data.nuscenes_data",
+                 "raintpu_torch.data.datasets.nuscenes",
+                 "raintpu_torch.data.datasets.nuscenes_gan",
+                 "raintpu_torch.render.geometry",
+                 "raintpu_torch.tools.nuscenes_depth",
+                 "raintpu_torch.tools.smooth_depth",
+                 "raintpu_torch.tools.check_difference",
+                 "raintpu_torch.tools.stage_profile"):
         assert name in names, name
 
     from raintpu_torch.data.textures import (procedural_streak_database,

@@ -258,6 +258,21 @@ def test_blur_plan_of_the_fog_stack():
     assert 2 * plan.smem_bytes <= blur_kernel.MAX_SMEM_BYTES
 
 
+@pytest.mark.parametrize("n,ksize", [(24, 25), (1, 7)])
+def test_blur_plan_of_the_nuscenes_shapes(n, ksize):
+    """The fog stack of the 6-frame 1600 x 900 rig and the depth
+    smoothing's 7-tap Gaussian take the full tile: 13 x 29 tiles a
+    plane, two blocks an SM."""
+    radius = (ksize - 1) // 2
+    plan = blur_kernel.blur_plan(n, 900, 1600, radius)
+    assert (plan.tile_h, plan.tile_w) == blur_kernel.TILE_HW
+    assert plan.tiles == (13, 29, n)
+    assert plan.smem_bytes == 4 * (ksize + 2 * (32 + 2 * radius)
+                                   * (128 + 2 * radius)
+                                   + (128 + 2 * radius) * 33 + 32 * 129)
+    assert 2 * plan.smem_bytes <= blur_kernel.MAX_SMEM_BYTES
+
+
 def test_blur_plan_refuses_more_tiles_than_the_kernel_numbers():
     with pytest.raises(ValueError, match="limit"):
         blur_kernel.blur_plan(blur_kernel.MAX_PLANES, 2 ** 20, 2048, 1)

@@ -404,3 +404,87 @@ def test_pano_job(tmp_path):
     with pytest.raises(ValueError, match="panos_dir"):
         PortJob(_spec(tpipe, str(tmp_path), "out_nodir", env_type="pano",
                       **kw)).run()
+
+
+def test_png_outputs_match_raintpu(dataset):
+    """--save_format png (the CLI's default): the same files as raintpu's
+    job writes; rainy PNGs, saturation PNGs, envmaps and the 16-bit
+    ``_raw`` mask companions within 1 level; the colormapped masks of
+    the same size."""
+    from PIL import Image
+
+    tmp, drops = dataset
+    JaxJob, PortJob = _jobs(drops)
+    kw = dict(raster_profile="tiny", save_format="png")
+    want = JaxJob(_spec(jpipe, tmp, "jax_png", **kw)).run()
+    got = PortJob(_spec(tpipe, tmp, "port_png", **kw)).run()
+    assert got["rendered"] == want["rendered"] == N_FRAMES
+    jroot = os.path.join(tmp, "jax_png", "toy", "seqA")
+    troot = os.path.join(tmp, "port_png", "toy", "seqA")
+    jfiles = sorted(os.path.relpath(os.path.join(d, f), jroot)
+                    for d, _, fs in os.walk(jroot) for f in fs)
+    tfiles = sorted(os.path.relpath(os.path.join(d, f), troot)
+                    for d, _, fs in os.walk(troot) for f in fs)
+    assert tfiles == jfiles
+    assert len(jfiles) == N_FRAMES * 5  # rainy, mask + raw, sat, envmap
+    for rel in jfiles:
+        a = np.asarray(Image.open(os.path.join(jroot, rel)))
+        b = np.asarray(Image.open(os.path.join(troot, rel)))
+        assert a.shape == b.shape and a.dtype == b.dtype, rel
+        colormapped = "rain_mask" in rel and not rel.endswith("_raw.png")
+        if not colormapped:
+            assert np.abs(a.astype(np.int64) - b).max() <= 1, rel
+    raw = np.asarray(Image.open(os.path.join(
+        troot, "rain", "25mm", "rain_mask", "000001_raw.png")))
+    assert raw.dtype == np.uint16 and raw.max() > 0
+
+
+def test_rename_folder_keeps_the_first_outputs(dataset):
+    """--conflict_strategy rename_folder: a second run into an existing
+    weather folder writes to ``{N}mm_copy00000`` (then ``_copy00001``)
+    and leaves the first run's outputs as they were."""
+    tmp, drops = dataset
+    _, PortJob = _jobs(drops)
+    first = PortJob(_spec(tpipe, tmp, "port_rename",
+                          raster_profile="tiny")).run()
+    assert first["rendered"] == N_FRAMES
+    rain = os.path.join(tmp, "port_rename", "toy", "seqA", "rain")
+    before = np.load(os.path.join(rain, "25mm", "rainy_image", "000000.npy"))
+    for copy in ("25mm_copy00000", "25mm_copy00001"):
+        stats = PortJob(_spec(tpipe, tmp, "port_rename",
+                              raster_profile="tiny",
+                              conflict_strategy="rename_folder")).run()
+        assert stats["rendered"] == N_FRAMES and stats["skipped"] == 0
+        again = np.load(os.path.join(rain, copy, "rainy_image",
+                                     "000000.npy"))
+        np.testing.assert_array_equal(again, before)
+    assert sorted(os.listdir(rain)) == ["25mm", "25mm_copy00000",
+                                        "25mm_copy00001"]
+    np.testing.assert_array_equal(
+        np.load(os.path.join(rain, "25mm", "rainy_image", "000000.npy")),
+        before)
+
+
+def test_online_compaction_refits_on_overflow(dataset):
+    """A batch with more valid drops than the fitted render capacity
+    refits the capacity upward: every valid drop is rendered and none is
+    counted truncated (raintpu's test_online_compaction_refits_on_
+    overflow)."""
+    tmp, _ = dataset
+    job = _online(tmp, drop_capacity=512)
+    raw = job._simulate_batch([0, 1, 2])
+    n_valid = int(raw.count().max())
+    assert n_valid >= 2
+    job._render_cap = 1    # as if a lighter batch had fitted it
+    before = job._truncated_total
+    got = job._compact_for_render(raw)
+    assert job._render_cap >= n_valid
+    assert got.capacity == job._render_cap < raw.capacity
+    assert torch.equal(got.count(), raw.count())
+    for b in range(3):
+        assert torch.equal(got.ip1[b][got.valid[b]], raw.ip1[b][raw.valid[b]])
+    assert job._truncated_total == before
+    # A batch within the fitted capacity keeps it.
+    cap = job._render_cap
+    job._compact_for_render(raw)
+    assert job._render_cap == cap
