@@ -7,9 +7,11 @@ with env_fold, five float32 planes — the online CLI path
 (``raintpu_torch.cli.main --online``) and the offline CLI path (no
 ``--online``: particle XML simulated by the port's tool, parsed by the
 native parser, the fitted ladder) on a 16-frame KITTI-size customdb
-dataset with the saturation mask and the envmap, and the nuScenes path
+dataset with the saturation mask and the envmap, the nuScenes path
 (the depth tool, the online CLI at 100 mm/hr, depth smoothing and the
-6-camera rig's stage profile). Phases:
+6-camera rig's stage profile), the sharded render
+(``raintpu_torch.parallel``) and the render farm
+(``python -m raintpu_torch.main_threaded``). Phases:
 
   1. device: a CUDA card is required; prints its name, its
      ``nvidia-smi`` name and power limit, and the TF32 flags (off);
@@ -26,50 +28,63 @@ dataset with the saturation mask and the envmap, and the nuScenes path
   6. timing (information, not a claim): images/s of the render with the
      float inputs perturbed each iteration, and kernel vs plain ms, the
      kernel also under other image tiles (TILE_HW);
-  7. blur: the fog stage's stencil kernel against its plain version on
+  7. sharded: the bench batch through ``render_frames_sharded`` in a
+     one-rank nccl group, torch.equal to ``render_frames`` with one
+     raster and one blur launch; then two ranks on the one card
+     (spawned processes, gloo) on its first 8 frames, as dp 1 x sp 2
+     (each rank half of every frame's drops, the planes all-reduced;
+     within 1e-5 of one rank, alpha mass within 1e-5 relative, the
+     overflow summed equal, the raster kernel against plain on rank 1's
+     operands) and as dp 2 x sp 1 (within 1e-6);
+  8. blur: the fog stage's stencil kernel against its plain version on
      the CLI and bench fog stacks, odd and multi-fold shapes, with
      kernel, plain, conv2d and bound ms, and the kernel under other tile
      shapes;
-  8. multitile: the raster kernel with 8 planes on every rung of the
+  9. multitile: the raster kernel with 8 planes on every rung of the
      default ladder at KITTI size, the multi-tile rungs included, one
      rung a call and all rungs in one call, timed under several image
      tiles, and one launch with every slot empty against a plain
      ``torch.zeros`` of the same planes;
-  9. determinism: two launches on the bench rungs and on the default
+ 10. determinism: two launches on the bench rungs and on the default
      ladder's rungs give the same bits;
- 10. cli: ``cli.main --online`` renders the dataset on the card;
+ 11. cli: ``cli.main --online`` renders the dataset on the card;
      outputs, one raster launch per batch carrying every rung, and the
      first two frames against the CPU render of the same drops and
      texture picks;
- 11. stages: stage times of one CLI batch, the raster stage rung by rung;
- 12. offline: ``cli.main`` without ``--online`` and with the fitted
+ 12. farm: the farm over the [cli] dataset at 25 and 50 mm/hr in frame
+     windows of 8 (4 children), one at a time and two at a time: every
+     child exits 0, every frame's outputs exist, the 25 mm/hr frames
+     equal the [cli] job's within 1e-5, and a rerun skips every frame
+     and rewrites no file; wall time and images/s (information);
+ 13. stages: stage times of one CLI batch, the raster stage rung by rung;
+ 14. offline: ``cli.main`` without ``--online`` and with the fitted
      ladder: the tool writes the XML, the native parser reads it, the
      .npz cache is written; outputs, one raster and one blur launch per
      batch, frames 0-1 against the CPU render; the ladder fitted on the
      card beside the one fitted on the CPU from the same sample, the
      tool's time, the XML's size, parse ms per frame (native, Python);
- 13. regimes: on the offline run's first batch, the raster kernel
+ 15. regimes: on the offline run's first batch, the raster kernel
      against plain and two launches bit-identical on the operands of
      the fitted ladder, 'white', 'naive_db' and streak noise; the
      renders of white, naive_db, noise and a synthetic pano on the card
      against the CPU render of frames 0-1; raster ms per regime;
- 14. export: a 4-frame online run with ``--export_xml`` whose XML,
+ 16. export: a 4-frame online run with ``--export_xml`` whose XML,
      re-parsed, holds every frame's simulated drops;
- 15. nuscenes depth: a synthetic nuScenes tree made from a seed (the
+ 17. nuscenes depth: a synthetic nuScenes tree made from a seed (the
      v1.0-trainval tables, one scene of 12 CAM_FRONT frames of 1600x900
      as .npy, a 34,000-point LIDAR_TOP sweep per frame, the ego at
      10 m/s); the port's depth tool writes every frame's map on the card,
      and frames 0-1 must equal the CPU's maps bit for bit;
- 16. nuscenes cli: ``cli.main --dataset nuscenes --online`` at 100 mm/hr
+ 18. nuscenes cli: ``cli.main --dataset nuscenes --online`` at 100 mm/hr
      with the fitted ladder, batches of 6, the envmap saved, and the
      simulation capacity sized to the whole population: nothing
      truncated or overflowed, one raster and one blur launch per batch,
      frame 0 against the CPU render of the same drops and texture picks;
- 17. depth blur: ``tools.smooth_depth.improve_depth`` on a 900x1600 map
+ 19. depth blur: ``tools.smooth_depth.improve_depth`` on a 900x1600 map
      on the card (one launch of the blur kernel at 7 taps) against the
      same smoothing on the CPU, and the 7-tap blur against its plain
      version;
- 18. nuscenes rig: ``tools.stage_profile --nuscenes`` (6 frames of
+ 20. nuscenes rig: ``tools.stage_profile --nuscenes`` (6 frames of
      1600x900 at 100 mm/hr, the full population, a fitted ladder): stage
      times, then on that batch the raster kernel against its plain
      version (rung by rung and all rungs in one launch), two launches
@@ -83,16 +98,20 @@ its previous design's (row chunks, one launch per rung; PERF.md section
 6). Each phase's wall time is printed after it.
 
 Prints a kernels JSON line (launches by path: bench, cli, offline,
-regimes, nuscenes, and depth for the blur), then ``{"ok": true,
-"device": ...}`` as the last line. Any failing phase raises and the
-script exits non-zero.
+regimes, nuscenes, the one-rank sharded render, and depth for the blur;
+the two-rank and farm children launch in processes of their own and
+are not counted), then ``{"ok": true, "device": ...}`` as the last
+line. Any failing phase raises and the script exits non-zero.
 
 Run from the repository root:  python3 chip_smoke.py
 """
 
+import ast
 import dataclasses
 import json
 import os
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -100,6 +119,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from raintpu_torch import cli, cuda_build
@@ -111,6 +131,8 @@ from raintpu_torch.ops import blur_kernel, fog, fused_raster, rasterize
 from raintpu_torch.ops.blur import cv2_gaussian_kernel, separable_blur_hw
 from raintpu_torch.ops.fused_raster import N_PLANES, N_PLANES_SAT
 from raintpu_torch.ops.rasterize import RasterConfig, select_textures
+from raintpu_torch.parallel import distributed
+from raintpu_torch.parallel import mesh as pmesh
 from raintpu_torch.particles import native, xml_io
 from raintpu_torch.particles.schema import TYPE_BIG, compact_drop_batch
 from raintpu_torch.physics.simulator import (SimConfig, frame_generator,
@@ -178,6 +200,25 @@ NUSC_SPEED_MPS = 10.0
 # 7 taps in another order.
 DEPTH_ATOL = 1e-4
 DEPTH_RTOL = 1e-5
+
+# The sharded render: (a) one rank on the bench batch; (b) two ranks on
+# the one card (gloo: NCCL takes one rank a GPU) on its first PAIR_BATCH
+# frames, as dp 1 x sp 2 and as dp 2 x sp 1.
+PAIR_BATCH = 8
+PAIR_TIMEOUT_S = 300
+# sp 2 against one rank: the same contributions, each half of a frame's
+# drops summed on its own rank and the two planes then added, so float32
+# sums in another order (tests/test_sharding.py's bars).
+SHARD_ATOL = 1e-5
+SHARD_MASS_RTOL = 1e-5
+# dp 2 against one rank: every frame rendered whole on one rank; only a
+# library's choice of algorithm by batch size may move a value.
+DP_ATOL = 1e-6
+# The farm: python -m raintpu_torch.main_threaded over the [cli] phase's
+# dataset, 2 intensities x 2 windows of CLI_BATCH frames = 4 children.
+FARM_INTENSITIES = (CLI_FALLRATE, 50)
+FARM_ATOL = 1e-5
+FARM_TIMEOUT_S = 420
 
 # Peak rates of one H100 SXM (NVIDIA data sheet) for the bounds.
 PEAK_FP32_FLOPS = 67e12
@@ -482,33 +523,41 @@ def render_phase(cfg, gen, drops, bg, depth, tex, edges):
               f"{far:.3g}")
         if d.max().item() > RENDER_MAX_ABS or far > RENDER_MAX_FAR_FRACTION:
             raise AssertionError(f"GPU {name} disagrees with the CPU render")
-    return launches, blur_launches
+    return launches, blur_launches, tex_idx
 
 
-def timing_phase(cfg, gen, drops, bg, depth, tex, edges, rungs, smi):
-    """Images/s of the render and kernel vs plain ms (information)."""
-    iters = 5
-
-    def render_once(i):
+def render_rate(render, bg, depth, drops, iters=5):
+    """(images/s, s per call) of ``render(bg, depth, drops)`` over
+    ``iters`` calls after a warm-up: call i moves every float input by
+    i * 1e-12 (as bench.py does, so no call repeats another's inputs),
+    and the host clock is read after a synchronize."""
+    def once(i):
         eps = i * 1e-12
-        d_i = drops.map(lambda t: t + eps if t.is_floating_point() else t)
-        out = frame.render_frames(bg + eps, depth + eps, d_i, tex, edges,
-                                  cfg, generator=gen)
+        out = render(bg + eps, depth + eps,
+                     drops.map(lambda t: t + eps if t.is_floating_point()
+                               else t))
         return (out.rainy_image.sum() + out.rain_mask.sum()
                 + out.overflow.sum())
 
-    render_once(0)
+    once(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     acc = torch.zeros((), device=bg.device)
     for i in range(1, iters + 1):
-        acc = acc + render_once(i)
+        acc = acc + once(i)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if not torch.isfinite(acc):
         raise AssertionError("timed render produced non-finite sums")
-    imgs = BATCH * iters / dt
-    phase(f"[timing] render {imgs:.2f} images/s ({dt / iters * 1e3:.1f} "
+    return bg.shape[0] * iters / dt, dt / iters
+
+
+def timing_phase(cfg, gen, drops, bg, depth, tex, edges, rungs, smi):
+    """Images/s of the render and kernel vs plain ms (information)."""
+    imgs, per = render_rate(
+        lambda b, d, dr: frame.render_frames(b, d, dr, tex, edges, cfg,
+                                             generator=gen), bg, depth, drops)
+    phase(f"[timing] render {imgs:.2f} images/s ({per * 1e3:.1f} "
           f"ms per batch of {BATCH}) on {smi}")
 
     tex_hw = tuple(tex.raw.shape[1:])
@@ -836,6 +885,16 @@ def check_outputs(tag, out_root, fallrate, n_frames, sat_env=True):
         raise AssertionError(f"{tag}: a frame rendered no rain")
 
 
+def rain_outputs(out_root, fallrate):
+    """{sub/name: array} of the customdb run's rainy images, rain masks
+    and saturation masks at ``fallrate``."""
+    rain = os.path.join(out_root, "customdb", "drive", "rain",
+                        f"{fallrate}mm")
+    return {f"{sub}/{name}": np.load(os.path.join(rain, sub, name))
+            for sub in ("rainy_image", "rain_mask", "saturation_mask")
+            for name in sorted(os.listdir(os.path.join(rain, sub)))}
+
+
 def compare_with_cpu(tag, out, ref, names, frames=slice(0, 2)):
     """GPU outputs of ``frames`` against the CPU render ``ref`` of the
     same frames, within the render bars."""
@@ -886,6 +945,7 @@ def cli_phase(dev, smi):
             raise AssertionError(f"the CLI path's launches {kinds}: every "
                                  "launch must carry K1's and K2's windows")
         check_outputs("cli", out_root, CLI_FALLRATE, CLI_FRAMES)
+        outputs = rain_outputs(out_root, CLI_FALLRATE)
 
     # Frames 0-1 of the first batch against the CPU render of the same
     # drops and texture picks.
@@ -895,7 +955,7 @@ def cli_phase(dev, smi):
                                        "saturation_mask", "envmap"))
     phase(f"[cli] img_per_s {stats.get('img_per_s')} (the job's own wall "
           f"clock, kernel builds done, disk writes included) on {smi}")
-    return kinds, call
+    return kinds, call, outputs
 
 
 def _ladder(raster):
@@ -1586,6 +1646,314 @@ def nuscenes_phases(dev, smi):
     return kinds, raster, depth
 
 
+def free_address():
+    """localhost:<a free port>, for a process group's rendezvous."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return f"localhost:{s.getsockname()[1]}"
+
+
+def sharded_phase(cfg, gen, drops, bg, depth, tex, edges, tex_idx, smi):
+    """(a) The sharded entry in a one-rank group (nccl on a card): a
+    (1, 1) mesh, the bench batch with the [render] phase's texture
+    picks; the outputs must be the bits of render_frames, in one raster
+    and one blur launch. Images/s of both, in turns (information)."""
+    dev = bg.device
+    args = (bg, depth, drops, tex, edges, cfg)
+    want = frame.render_frames(*args, tex_idx=tex_idx)
+    distributed.initialize(free_address(), 1, 0, device=dev.type)
+    try:
+        mesh = pmesh.make_mesh(sp=1, device_type=dev.type)
+        reset_counts()
+        got = pmesh.render_frames_sharded(mesh, *args, tex_idx=tex_idx)
+        torch.cuda.synchronize()
+        launches = fused_raster.fused_raster_composite.launches
+        blur_launches = blur_kernel.separable_blur.launches
+
+        def unsharded(b, d, dr):
+            return frame.render_frames(b, d, dr, tex, edges, cfg,
+                                       tex_idx=tex_idx)
+
+        def sharded(b, d, dr):
+            return pmesh.render_frames_sharded(mesh, b, d, dr, tex, edges,
+                                               cfg, tex_idx=tex_idx)
+
+        rates = [(name, render_rate(fn, bg, depth, drops)[0])
+                 for name, fn in (("render_frames", unsharded),
+                                  ("sharded", sharded), ("sharded", sharded),
+                                  ("render_frames", unsharded))]
+    finally:
+        dist.destroy_process_group()
+    names = ("rainy_image", "rain_mask", "overflow")
+    equal = {n: torch.equal(getattr(got, n), getattr(want, n))
+             for n in names}
+    phase(f"[sharded] one rank ({'nccl' if dev.type == 'cuda' else 'gloo'}),"
+          f" mesh {tuple(mesh.mesh.shape)}: torch.equal to render_frames "
+          f"{equal}; raster launches {launches}, blur launches "
+          f"{blur_launches}; mask mass {got.rain_mask.sum().item():.1f}")
+    phase("[sharded] images/s in turns (information): "
+          + ", ".join(f"{n} {r:.2f}" for n, r in rates) + f", on {smi}")
+    if not all(equal.values()):
+        raise AssertionError(f"the one-rank sharded render differs from "
+                             f"render_frames: {equal}")
+    if launches != 1 or blur_launches != 1:
+        raise AssertionError(f"the one-rank sharded render launched the "
+                             f"raster {launches} and the blur "
+                             f"{blur_launches} times, not once each")
+    return dict(launches=launches, blur_launches=blur_launches)
+
+
+def _field_outputs(out):
+    return {n: getattr(out, n).cpu()
+            for n in ("rainy_image", "rain_mask", "overflow")}
+
+
+def _pair_rank(rank, address, inputs, cfg, dev_type, out_dir):
+    """One of the [sharded] phase's two ranks (its own process, on the
+    parent's device, gloo): the batch as dp 1 x sp 2, the raster
+    kernel against plain on this rank's operands (rank 1: the second
+    half of every frame's drops), then the batch as dp 2 x sp 1; what
+    it rendered and its launches go to out_dir/rank<r>.pt."""
+    dev = torch.device(dev_type, 0 if dev_type == "cuda" else None)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(address, 2, rank, device=dev.type,
+                           backend="gloo")
+    try:
+        bg, depth, drops, tex, edges, tex_idx = (
+            inputs[0].to(dev), inputs[1].to(dev), inputs[2].to(dev),
+            inputs[3].to(dev), inputs[4].to(dev), inputs[5].to(dev))
+        got = {}
+
+        def render(mesh, frames, key):
+            """The checked call (its outputs and launches), then the
+            host ms of it and of one more call, synchronized."""
+            f = slice(*frames)
+            ms = []
+            for _ in range(2):
+                reset_counts()
+                t0 = time.perf_counter()
+                out = pmesh.render_frames_sharded(
+                    mesh, bg[f], depth[f], drops.map(lambda t: t[f]), tex,
+                    edges, cfg, tex_idx=tex_idx[f])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if not ms[1:]:
+                    got[key] = _field_outputs(out)
+                    got[key + "_launches"] = (
+                        fused_raster.fused_raster_composite.launches,
+                        blur_kernel.separable_blur.launches)
+            got[key + "_ms"] = tuple(ms)
+
+        b, n = depth.shape[0], drops.valid.shape[1]
+        render(pmesh.make_mesh(sp=2, device_type=dev.type), (0, b), "sp2")
+        if rank == 1:
+            mine = slice(n // 2, n)
+            _, env_photo, _ = frame.frame_background(bg, depth, cfg)
+            params, _ = frame.drop_fused_params(
+                env_photo, drops.map(lambda t: t[:, mine]), tex, edges, cfg,
+                tex_idx=tex_idx[:, mine])
+            got["rank1_err"] = against_plain(
+                "sharded",
+                f"rank 1's operands (slots {n // 2}-{n - 1} of each frame)",
+                frame.kernel_rungs(params, cfg), cfg.image_hw,
+                tuple(tex.raw.shape[1:]), N_PLANES)
+        per = b // 2
+        render(pmesh.make_mesh(sp=1, device_type=dev.type),
+               (rank * per, rank * per + per), "dp2")
+        torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def pair_phase(cfg, drops, bg, depth, tex, edges, tex_idx, smi):
+    """(b) Two ranks on the one card, spawned processes with gloo (it
+    takes CUDA tensors for all_reduce; NCCL refuses two ranks on one
+    GPU), on the first PAIR_BATCH frames of the bench batch: dp 1 x sp 2
+    within SHARD_ATOL of the one-rank render, alpha mass within
+    SHARD_MASS_RTOL, the overflow summed over the ranks equal to the
+    one-rank overflow, and the raster kernel against plain on rank 1's
+    operands; dp 2 x sp 1 within DP_ATOL (bit-equality reported)."""
+    sub = slice(0, PAIR_BATCH)
+    cut = (bg[sub], depth[sub], drops.map(lambda t: t[sub]), tex, edges,
+           tex_idx[sub])
+    want = _field_outputs(frame.render_frames(*cut[:5], cfg,
+                                              tex_idx=cut[5]))
+    inputs = tuple(t.to("cpu") for t in cut)
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.spawn(
+            _pair_rank, args=(free_address(), inputs, cfg, bg.device.type,
+                              tmp), nprocs=2, join=False)
+        deadline = time.monotonic() + PAIR_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the two ranks ran over "
+                                       f"{PAIR_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(2)]
+    phase("[sharded] two ranks' raster and blur launches, each rank's "
+          "own count (their processes; not in the kernels line): "
+          + "; ".join(f"rank {r} sp2 {g['sp2_launches']} dp2 "
+                      f"{g['dp2_launches']}" for r, g in enumerate(got)))
+    for r, g in enumerate(got):
+        if g["sp2_launches"] != (1, 1) or g["dp2_launches"] != (1, 1):
+            raise AssertionError(f"rank {r}: not one raster and one blur "
+                                 "launch a call")
+    mass = want["rain_mask"].sum().item()
+    for r, g in enumerate(got):
+        out = g["sp2"]
+        d_mask = (out["rain_mask"] - want["rain_mask"]).abs().max().item()
+        d_img = (out["rainy_image"] - want["rainy_image"]).abs().max().item()
+        rel = abs(out["rain_mask"].sum().item() - mass) / mass
+        same_overflow = torch.equal(out["overflow"], want["overflow"])
+        phase(f"[sharded] dp 1 x sp 2, rank {r}: max|sp2-one rank| mask "
+              f"{d_mask:.3g} image {d_img:.3g}; alpha mass {mass:.2f}, "
+              f"relative difference {rel:.3g}; overflow summed over the "
+              f"ranks {int(out['overflow'].sum())} (one rank "
+              f"{int(want['overflow'].sum())}); render ms, first call / "
+              f"second: {g['sp2_ms'][0]:.1f} / {g['sp2_ms'][1]:.1f} (gloo "
+              f"all-reduce through the host included), on {smi}")
+        if not (d_mask <= SHARD_ATOL and d_img <= SHARD_ATOL
+                and rel <= SHARD_MASS_RTOL and same_overflow):
+            raise AssertionError(f"dp 1 x sp 2 rank {r} disagrees with the "
+                                 "one-rank render")
+    same_ranks = all(torch.equal(got[0]["sp2"][n], got[1]["sp2"][n])
+                     for n in want)
+    phase(f"[sharded] dp 1 x sp 2: both ranks hold the same bits "
+          f"{same_ranks}")
+    if not same_ranks:
+        raise AssertionError("the two sp ranks finished different frames")
+    per = PAIR_BATCH // 2
+    diffs, bits = [], []
+    for r, g in enumerate(got):
+        f = slice(r * per, r * per + per)
+        for n in want:
+            a, b = g["dp2"][n], want[n][f]
+            diffs.append((a.double() - b.double()).abs().max().item())
+            bits.append(torch.equal(a, b))
+    phase(f"[sharded] dp 2 x sp 1: max|dp2-one rank| {max(diffs):.3g}, "
+          f"bit-equal {all(bits)}; render ms, first call / second, "
+          f"rank 0 {got[0]['dp2_ms'][0]:.1f} / {got[0]['dp2_ms'][1]:.1f}, "
+          f"rank 1 {got[1]['dp2_ms'][0]:.1f} / {got[1]['dp2_ms'][1]:.1f}, "
+          f"for {per} frames a rank")
+    if max(diffs) > DP_ATOL:
+        raise AssertionError("dp 2 x sp 1 disagrees with the one-rank "
+                             "render")
+    return dict(max_abs_err=got[1]["rank1_err"])
+
+
+def _farm(root, tmp, out_root, threads, dev, run):
+    """``python -m raintpu_torch.main_threaded`` over the [cli] dataset
+    in ``tmp``, its logs in tmp/logs/<run>: (wall s, {tag: the child's
+    job stats}). The farm and its
+    children run in a session of their own, killed whole on a time-out;
+    a non-zero exit (a child failed) raises with the logs."""
+    src = os.path.join(tmp, "source")
+    logs = os.path.join(tmp, "logs", run)
+    os.makedirs(logs)
+    argv = [sys.executable, "-m", "raintpu_torch.main_threaded",
+            "--dataset", "customdb", "-k", src, "-d", src,
+            "--output", out_root, "--online",
+            "--intensity", ",".join(map(str, FARM_INTENSITIES)),
+            "--frames_per_thread", str(CLI_BATCH),
+            "--frame_end", str(CLI_FRAMES), "--max_threads", str(threads),
+            "--log_dir", logs, "--batch_size", str(CLI_BATCH),
+            "--drop_capacity", str(CLI_CAPACITY), "--save_format", "npy",
+            "--save_saturation", "--save_envmap", "--device", str(dev)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        printed = proc.communicate(timeout=FARM_TIMEOUT_S)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    stats = {}
+    for name in sorted(os.listdir(logs)):
+        if name.startswith("automate_log_"):
+            with open(os.path.join(logs, name)) as fh:
+                done = [ln for ln in fh if ln.startswith("Done: ")]
+            stats[name[len("automate_log_"):-4]] = (
+                ast.literal_eval(done[-1][len("Done: "):]) if done else None)
+    if proc.returncode != 0 or len(stats) != 4 or None in stats.values():
+        errs = "".join(open(os.path.join(logs, n)).read()[-2000:]
+                       for n in sorted(os.listdir(logs))
+                       if n.startswith("automate_error_"))
+        raise AssertionError(f"the farm exited {proc.returncode}:\n"
+                             f"{printed[-4000:]}\n{errs}")
+    return wall, stats
+
+
+def farm_phase(cli_outputs, dev, smi):
+    """The render farm on the [cli] phase's dataset: 4 children (25 and
+    50 mm/hr x frame windows 0-7, 8-15), one at a time and then two at a
+    time, into separate output roots. Every child exits 0 and renders
+    its 8 frames, every frame's outputs exist, the 25 mm/hr frames equal
+    the [cli] job's within FARM_ATOL (online frames are keyed by frame
+    index and the windows are [cli]'s batches), and a third run over the
+    two-at-a-time outputs skips every frame and rewrites no file. Wall
+    time and images/s (information). The children's kernel launches
+    are in their own processes, not in the kernels line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_frames = len(FARM_INTENSITIES) * CLI_FRAMES
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_dataset(tmp)
+        runs = {}
+        for threads in (1, 2):
+            out_root = os.path.join(tmp, f"farm{threads}")
+            wall, stats = _farm(root, tmp, out_root, threads, dev,
+                                f"threads{threads}")
+            runs[threads] = out_root
+            rendered = [s["rendered"] for s in stats.values()]
+            summed = sum(s.get("img_per_s", 0.0) for s in stats.values())
+            phase(f"[farm] --max_threads {threads}: 4 children rendered "
+                  f"{rendered} frames; wall {wall:.2f} s, "
+                  f"{n_frames / wall:.2f} images/s over the wall, "
+                  f"children's img_per_s summed "
+                  f"{summed:.2f} (each its job's own wall clock), on {smi}")
+            if rendered != [CLI_BATCH] * 4:
+                raise AssertionError(f"farm children rendered {rendered}")
+            for fallrate in FARM_INTENSITIES:
+                check_outputs("farm", out_root, fallrate, CLI_FRAMES)
+            got = rain_outputs(out_root, CLI_FALLRATE)
+            if sorted(got) != sorted(cli_outputs):
+                raise AssertionError("the farm's outputs at "
+                                     f"{CLI_FALLRATE} mm/hr differ in name")
+            diff = max(np.abs(got[k].astype(np.float64)
+                              - cli_outputs[k].astype(np.float64)).max()
+                       for k in got)
+            bits = all(np.array_equal(got[k], cli_outputs[k]) for k in got)
+            phase(f"[farm] {CLI_FALLRATE} mm/hr frames against the [cli] "
+                  f"job: max difference {diff:.3g}, bit-equal {bits}")
+            if diff > FARM_ATOL:
+                raise AssertionError("the farm's frames differ from the "
+                                     "single job's")
+        out_root = runs[2]
+        before = {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
+                  for d, _, fs in os.walk(out_root) for f in fs}
+        wall, stats = _farm(root, tmp, out_root, 2, dev, "rerun")
+        after = {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
+                 for d, _, fs in os.walk(out_root) for f in fs}
+        skipped = [(s["rendered"], s["skipped"]) for s in stats.values()]
+        phase(f"[farm] rerun over complete outputs: (rendered, skipped) "
+              f"{skipped}; {len(before)} files, rewritten "
+              f"{sum(after[k] != before[k] for k in before)}; wall "
+              f"{wall:.2f} s")
+        if skipped != [(0, CLI_BATCH)] * 4 or after != before:
+            raise AssertionError("the farm's rerun did not skip everything")
+
+
 def timed(fn, *args):
     """fn(*args), its wall time printed after it."""
     t0 = time.perf_counter()
@@ -1601,16 +1969,20 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     data = timed(workload_phase, dev)
     rungs, max_err, all_err = timed(kernel_phase, *data)
-    launches, blur_launches = timed(render_phase, *data)
+    launches, blur_launches, tex_idx = timed(render_phase, *data)
     k1 = timed(timing_phase, *data, rungs, smi)
     k1_bound, k1_by, k1_px = raster_bound(rungs, (H, W), 5)
     phase(f"[timing] all rungs: bound {k1_bound:.4f} ms ({k1_by}; {k1_px} "
           "window px)")
+    sharded = timed(sharded_phase, *data, tex_idx, smi)
+    cfg, _, drops, bg, depth, tex, edges = data
+    pair = timed(pair_phase, cfg, drops, bg, depth, tex, edges, tex_idx, smi)
     blur = timed(blur_phase, dev, smi)
     k2 = timed(multitile_phase, dev, smi)
     timed(determinism_phase, rungs, k2["rungs"],
           tuple(data[5].raw.shape[1:]), k2["tex_hw"])
-    cli_launches, cli_call = timed(cli_phase, dev, smi)
+    cli_launches, cli_call, cli_outputs = timed(cli_phase, dev, smi)
+    timed(farm_phase, cli_outputs, dev, smi)
     timed(cli_stages_phase, cli_call, smi)
     offline_launches, offline_call = timed(offline_phase, dev, smi)
     regimes = timed(regimes_phase, offline_call, k1["ms"], smi)
@@ -1622,38 +1994,44 @@ def main() -> None:
                   plain_ms=k1["plain_ms"], bound_ms=k1_bound,
                   bound_by=k1_by, library_ms=None)
 
-    def by_path(kind, bench, **more):
+    def by_path(kind, bench, one_rank, **more):
         """Launches of the bench render, the online CLI run, the offline
-        CLI run, the regimes' renders and the nuScenes CLI run that
-        carried ``kind`` (and ``more``), and their sum."""
+        CLI run, the regimes' renders, the nuScenes CLI run and the
+        one-rank sharded render that carried ``kind`` (and ``more``), and
+        their sum."""
         paths = {"bench": bench, "cli": cli_launches[kind],
                  "offline": offline_launches[kind],
-                 "regimes": regimes[kind], "nuscenes": nusc[kind], **more}
+                 "regimes": regimes[kind], "nuscenes": nusc[kind],
+                 "sharded": one_rank, **more}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     # K1 and K3 are one launch of the same kernel on the bench path (K1's
     # windows, all rungs at once); their time is that launch's.
     print(f"[device] nvidia-smi: {smi}", flush=True)
     print(json.dumps({"kernels": [
-        {**raster, "replaces": KERNEL_REPLACES, **by_path("k1", launches),
+        {**raster, "replaces": KERNEL_REPLACES,
+         **by_path("k1", launches, sharded["launches"]),
          "max_abs_err": max(max_err, regimes["max_abs_err"],
-                            rig["max_abs_err"], nusc_raster["max_abs_err"]),
+                            rig["max_abs_err"], nusc_raster["max_abs_err"],
+                            pair["max_abs_err"]),
          "ms": k1["ms"]},
         {**raster, "name": "fused_raster_multitile",
-         "replaces": K2_REPLACES, **by_path("k2", 0),
+         "replaces": K2_REPLACES, **by_path("k2", 0, 0),
          "max_abs_err": max(k2["max_abs_err"], regimes["multi_err"],
                             rig["multi_err"], nusc_raster["multi_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"]},
         {**raster, "name": "fused_raster_resident",
-         "replaces": K3_REPLACES, **by_path("k3", launches),
+         "replaces": K3_REPLACES,
+         **by_path("k3", launches, sharded["launches"]),
          "max_abs_err": max(all_err, k2["all_rungs_err"],
                             regimes["max_abs_err"], rig["max_abs_err"],
-                            nusc_raster["max_abs_err"]),
+                            nusc_raster["max_abs_err"], pair["max_abs_err"]),
          "ms": k1["ms"]},
         {"name": "separable_blur", "route": "cuda", "source": BLUR_SOURCE,
          "replaces": BLUR_REPLACES,
-         **by_path("k4", blur_launches, depth=depth["launches"]),
+         **by_path("k4", blur_launches, sharded["blur_launches"],
+                   depth=depth["launches"]),
          **blur, "max_abs_err": max(blur["max_abs_err"],
                                     rig["blur"]["max_abs_err"],
                                     depth["max_abs_err"])}]}))

@@ -176,6 +176,32 @@ def frame_background(bg: torch.Tensor, depth: torch.Tensor,
     return fogged, env_photo, env_save
 
 
+def frame_draws(drops: DropBatch, bin_edges: torch.Tensor,
+                cfg: PipelineConfig,
+                generator: Optional[torch.Generator] = None,
+                tex_idx: Optional[torch.Tensor] = None,
+                noise_deg: Optional[torch.Tensor] = None):
+    """The render's random draws over a (B, N) drop batch: every drop's
+    texture pick and, when the settings' noise_scale * noise_std is not
+    0, its streak-noise angle in degrees (standard normal times
+    noise_std * noise_scale). A draw given as data is kept; the missing
+    ones come from ``generator``, the texture picks first. Returns
+    (tex_idx (B, N) int64, noise_deg (B, N) float32 or None) on the
+    drops' device."""
+    st = cfg.settings
+    dev = drops.valid.device
+    if tex_idx is None:
+        tex_idx = raster_ops.select_textures(drops, bin_edges, generator)
+    tex_idx = tex_idx.to(device=dev, dtype=torch.int64)
+    if noise_deg is None and st.noise_scale * st.noise_std != 0.0:
+        noise_deg = (torch.randn(drops.valid.shape, generator=generator,
+                                 device=dev)
+                     * st.noise_std * st.noise_scale)
+    if noise_deg is not None:
+        noise_deg = noise_deg.to(device=dev, dtype=torch.float32)
+    return tex_idx, noise_deg
+
+
 def drop_fused_params(env_rgb: Optional[torch.Tensor], drops: DropBatch,
                       textures, bin_edges: torch.Tensor, cfg: PipelineConfig,
                       generator: Optional[torch.Generator] = None,
@@ -188,10 +214,9 @@ def drop_fused_params(env_rgb: Optional[torch.Tensor], drops: DropBatch,
     ``tex_idx`` (B, N): the texture of every drop, given as data; when
     None it is drawn from ``generator``. ``noise_deg`` (B, N): every
     drop's noise angle in degrees, given as data; when None and the
-    settings' noise_scale * noise_std is not 0, it is drawn from
-    ``generator`` after the texture picks (standard normal times
-    noise_std * noise_scale). Under the 'white' and 'naive_db'
-    strategies the gains are ones and nothing is defocused
+    settings ask for streak noise, it is drawn from ``generator`` after
+    the texture picks (:func:`frame_draws`). Under the 'white' and
+    'naive_db' strategies the gains are ones and nothing is defocused
     (``env_rgb`` is not read). The saturation rows carry the drops'
     pre-tau colors when cfg.compute_saturation_mask, else 0.
     Returns (list of rasterize.RungParams, overflow (B, n_buckets))."""
@@ -212,21 +237,14 @@ def drop_fused_params(env_rgb: Optional[torch.Tensor], drops: DropBatch,
         gains = torch.ones(drops.valid.shape + (3,), dtype=torch.float32,
                            device=dev)
 
-    if tex_idx is None:
-        tex_idx = raster_ops.select_textures(drops, bin_edges, generator)
-    tex_idx = tex_idx.to(device=dev, dtype=torch.int64)
-    if noise_deg is None and st.noise_scale * st.noise_std != 0.0:
-        noise_deg = (torch.randn(drops.valid.shape, generator=generator,
-                                 device=dev)
-                     * st.noise_std * st.noise_scale)
+    tex_idx, noise_deg = frame_draws(drops, bin_edges, cfg, generator,
+                                     tex_idx, noise_deg)
 
     geom_d = raster_ops.drop_geometry(
         drops, tex_hw, cfg.image_wh,
         focal_m=cam.focal_m, f_number=cam.f_number,
         focus_plane=st.focus_plane, coc_pixsize=cfg.raster.coc_pixsize,
-        apply_defocus=physics,
-        noise_deg=None if noise_deg is None else noise_deg.to(
-            device=dev, dtype=torch.float32))
+        apply_defocus=physics, noise_deg=noise_deg)
 
     lo, add_scale = composite_ops.blend_coefficients(
         drops.iw1, drops.iw2, drops.length,

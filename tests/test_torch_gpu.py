@@ -454,3 +454,111 @@ def test_envmap_on_the_card_equals_the_cpu(cuda):
     want = envmap.generate_envmap(img, geom)
     got = envmap.generate_envmap(img.to(cuda), geom)
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+def _free_address():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return f"localhost:{s.getsockname()[1]}"
+
+
+@pytest.mark.gpu
+def test_sharded_one_rank_nccl_equals_render_frames(cuda):
+    """A one-rank nccl group's sharded render (a (1, 1) mesh: no
+    collective) is render_frames, bit for bit, in one raster and one
+    blur launch."""
+    import torch.distributed as dist
+
+    from raintpu_torch.ops.rasterize import select_textures
+    from raintpu_torch.parallel import distributed
+    from raintpu_torch.parallel import mesh as pmesh
+
+    cfg, gen, drops, bg, depth, tex, edges = _scene(cuda)
+    tex_idx = select_textures(drops, edges, gen)
+    want = frame.render_frames(bg, depth, drops, tex, edges, cfg,
+                               tex_idx=tex_idx)
+    distributed.initialize(_free_address(), 1, 0)
+    try:
+        mesh = pmesh.make_mesh()
+        before = (tfr.fused_raster_composite.launches,
+                  blur_kernel.separable_blur.launches)
+        got = pmesh.render_frames_sharded(mesh, bg, depth, drops, tex, edges,
+                                          cfg, tex_idx=tex_idx)
+        torch.cuda.synchronize()
+        after = (tfr.fused_raster_composite.launches,
+                 blur_kernel.separable_blur.launches)
+    finally:
+        dist.destroy_process_group()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    assert want.rain_mask.sum() > 1.0
+    for name in ("rainy_image", "rain_mask", "overflow"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.gpu
+def test_sharded_two_ranks_on_the_card(cuda, tmp_path):
+    """Two processes on the one card (gloo: NCCL takes one rank a GPU)
+    split every frame's drops (dp 1 x sp 2) of tests/test_sharding.py's
+    scene: within 1e-5 of render_frames on the card, the same alpha mass
+    within a relative 1e-5 and the same overflow (the planes' sums only
+    change order)."""
+    import os
+    import subprocess
+    import sys
+
+    from raintpu_torch import cuda_build, interop
+    from raintpu_torch.ops.rasterize import select_textures
+    from torch_parallel_worker import port_config, save_scene, scene
+
+    cuda_build.build_all(("fused_raster", "separable_blur"))
+    b, h, w, cap = 4, 32, 64, 16
+    gen = torch.Generator().manual_seed(0)
+    ones = torch.ones(b)
+    drops = simulate_frames(
+        gen, SimConfig(image_wh=(w, h), focal_px=(400.0, 400.0),
+                       exposure_s=2e-3, capacity=cap, z_max=4.0),
+        ones * 200.0, ones * 5.0, ones * 2e-3, ones)
+    db = procedural_streak_database()
+    bank = texture_bank(db, device="cpu")
+    rng = np.random.RandomState(0)
+    save_scene(tmp_path / "scene.npz", rng.rand(b, h, w, 3).astype(np.float32),
+               (rng.rand(b, h, w) * 50 + 3).astype(np.float32),
+               interop.numpy_fields(drops),
+               (bank.raw.numpy(), bank.ay.numpy(), bank.bx.numpy()),
+               db.bin_edges, select_textures(drops, torch.as_tensor(
+                   db.bin_edges), gen).numpy(), cap)
+    bg, depth, drops, bank, edges, tex_idx, _ = scene(tmp_path / "scene.npz",
+                                                      "cuda")
+    want = frame.render_frames(bg, depth, drops, bank, edges,
+                               port_config(h, w, cap), tex_idx=tex_idx)
+    address = _free_address()
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_parallel_worker.py")
+    repo = os.path.dirname(os.path.dirname(worker))
+    procs = [subprocess.Popen(
+        [sys.executable, worker, address, str(r), "2", "card",
+         str(tmp_path / "scene.npz"), str(tmp_path / f"card{r}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo}) for r in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 and f"RANK_OK {r}" in log, log
+    mass = want.rain_mask.sum().item()
+    assert mass > 1.0
+    for r in (0, 1):
+        got = np.load(tmp_path / f"card{r}.npz")
+        np.testing.assert_allclose(got["mask"], want.rain_mask.cpu().numpy(),
+                                   atol=1e-5)
+        np.testing.assert_allclose(got["image"],
+                                   want.rainy_image.cpu().numpy(), atol=1e-5)
+        np.testing.assert_array_equal(got["overflow"],
+                                      want.overflow.cpu().numpy())
+        assert abs(float(got["mask"].sum()) - mass) / mass < 1e-5

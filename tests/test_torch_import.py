@@ -46,7 +46,10 @@ _SCRIPT = textwrap.dedent("""
                  "raintpu_torch.tools.nuscenes_depth",
                  "raintpu_torch.tools.smooth_depth",
                  "raintpu_torch.tools.check_difference",
-                 "raintpu_torch.tools.stage_profile"):
+                 "raintpu_torch.tools.stage_profile",
+                 "raintpu_torch.parallel.mesh",
+                 "raintpu_torch.parallel.distributed",
+                 "raintpu_torch.main_threaded"):
         assert name in names, name
 
     from raintpu_torch.data.textures import (procedural_streak_database,
