@@ -11,7 +11,9 @@ dataset with the saturation mask and the envmap, the nuScenes path
 (the depth tool, the online CLI at 100 mm/hr, depth smoothing and the
 6-camera rig's stage profile), the sharded render
 (``raintpu_torch.parallel``) and the render farm
-(``python -m raintpu_torch.main_threaded``). Phases:
+(``python -m raintpu_torch.main_threaded``), and the golden render path
+(``composite_mode="xla"``: patches first, then a scatter, the
+independent algorithm the fused kernel is held to). Phases:
 
   1. device: a CUDA card is required; prints its name, its
      ``nvidia-smi`` name and power limit, and the TF32 flags (off);
@@ -47,6 +49,15 @@ dataset with the saturation mask and the envmap, the nuScenes path
      ``torch.zeros`` of the same planes;
  10. determinism: two launches on the bench rungs and on the default
      ladder's rungs give the same bits;
+ 10a. golden: the golden path on the card — (a) A's batch against the
+     fused kernel on the same texture picks within 2e-4 but for cutoff
+     flips (GOLDEN_ATOL), 0 raster and 1 blur launch during the golden
+     render, overflow 0 on both; (b) the [multitile] batch (B's default
+     ladder, 8 planes) the same, the saturation mask included; (c)
+     texture_mode "gather" (supersample 2) on A's frames 0-1 against
+     the CPU within the render bars; (d) the one-rank nccl sharded
+     render's xla branch within 1e-6 of render_frames'; (e) images/s of
+     both paths on A in turns and each one's peak memory (information);
  11. cli: ``cli.main --online`` renders the dataset on the card;
      outputs, one raster launch per batch carrying every rung, and the
      first two frames against the CPU render of the same drops and
@@ -98,7 +109,8 @@ its previous design's (row chunks, one launch per rung; PERF.md section
 6). Each phase's wall time is printed after it.
 
 Prints a kernels JSON line (launches by path: bench, cli, offline,
-regimes, nuscenes, the one-rank sharded render, and depth for the blur;
+regimes, nuscenes, the one-rank sharded render, the golden render of A
+(raster 0, blur 1), and depth for the blur;
 the two-rank and farm children launch in processes of their own and
 are not counted), then ``{"ok": true, "device": ...}`` as the last
 line. Any failing phase raises and the script exits non-zero.
@@ -129,7 +141,8 @@ from raintpu_torch.data.textures import (procedural_streak_database,
                                          texture_bank)
 from raintpu_torch.ops import blur_kernel, fog, fused_raster, rasterize
 from raintpu_torch.ops.blur import cv2_gaussian_kernel, separable_blur_hw
-from raintpu_torch.ops.fused_raster import N_PLANES, N_PLANES_SAT
+from raintpu_torch.ops.fused_raster import (ALPHA_CUTOFF, N_PLANES,
+                                            N_PLANES_SAT)
 from raintpu_torch.ops.rasterize import RasterConfig, select_textures
 from raintpu_torch.parallel import distributed
 from raintpu_torch.parallel import mesh as pmesh
@@ -219,6 +232,22 @@ DP_ATOL = 1e-6
 FARM_INTENSITIES = (CLI_FALLRATE, 50)
 FARM_ATOL = 1e-5
 FARM_TIMEOUT_S = 420
+
+# The golden path (composite_mode "xla") against the fused kernel on the
+# same draws: raintpu's own bar between its two paths
+# (tests/test_pallas_batched.py:64-66). A drop's alpha is cut at
+# ALPHA_CUTOFF (2e-4), and the two paths round a pixel's texture
+# coordinates differently ((hx/hz + 0.5)/tw against (hx*(1/hz) + 0.5) *
+# (1/tw)), so a pixel whose alpha sits within float noise of the cutoff
+# can be kept by one path only. Such a pixel is a cutoff flip: the masks
+# differ there by ALPHA_CUTOFF (within GOLDEN_FLIP_TOL); flips are
+# counted, at most GOLDEN_MAX_FLIP_FRACTION of the pixels, and not
+# compared. The sharded golden render against the unsharded one: the
+# scatter's atomics add a pixel's terms in any order.
+GOLDEN_ATOL = 2e-4
+GOLDEN_FLIP_TOL = 1e-6
+GOLDEN_MAX_FLIP_FRACTION = 1e-5
+GOLDEN_SHARD_ATOL = 1e-6
 
 # Peak rates of one H100 SXM (NVIDIA data sheet) for the bounds.
 PEAK_FP32_FLOPS = 67e12
@@ -760,7 +789,8 @@ def multitile_phase(dev, smi):
           f"{fill:.4f} ms")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 max_abs_err=worst, all_rungs_err=every, rungs=rungs,
-                tex_hw=tex_hw)
+                tex_hw=tex_hw,
+                inputs=(cfg, drops, bg, depth, tex, edges, tex_idx))
 
 
 def determinism_phase(bench_rungs, cli_rungs, tex_hw_bench, tex_hw_cli):
@@ -779,6 +809,156 @@ def determinism_phase(bench_rungs, cli_rungs, tex_hw_bench, tex_hw_cli):
               f"(max difference {(first - second).abs().max().item():.3g})")
         if not same:
             raise AssertionError(f"two launches on the {name} differ")
+
+
+def golden_compare(label, got, want, names):
+    """The golden path's outputs ``got`` against the fused kernel's
+    ``want`` within GOLDEN_ATOL, but for cutoff flips: pixels whose rain
+    masks differ by ALPHA_CUTOFF (within GOLDEN_FLIP_TOL), at most
+    GOLDEN_MAX_FLIP_FRACTION of the pixels, where the other outputs are
+    not compared. Returns the largest difference outside the flips."""
+    dm = (got.rain_mask - want.rain_mask).abs()
+    flips = dm > GOLDEN_ATOL
+    n_flips = int(flips.sum())
+    odd = int((flips & ((dm - ALPHA_CUTOFF).abs() > GOLDEN_FLIP_TOL)).sum())
+    worst = 0.0
+    for name in names:
+        d = (getattr(got, name) - getattr(want, name)).abs()
+        keep = ~flips.reshape(flips.shape + (1,) * (d.ndim - flips.ndim))
+        kept = torch.where(keep, d, 0.0).max().item()
+        worst = max(worst, kept)
+        phase(f"[golden] {label}: max|xla-fused| {name} {d.max().item():.3g}"
+              f" (outside the cutoff flips {kept:.3g}); share of values "
+              f"off by > {GOLDEN_ATOL:g}: "
+              f"{(d > GOLDEN_ATOL).float().mean().item():.3g}")
+        if kept > GOLDEN_ATOL:
+            raise AssertionError(f"golden {label}: {name} off the fused "
+                                 f"kernel's by {kept} > {GOLDEN_ATOL}")
+    phase(f"[golden] {label}: cutoff flips {n_flips} of {dm.numel()} "
+          f"pixels (mask differences {sorted(set(dm[flips].tolist()))[:4]}"
+          f"...), not a flip {odd}")
+    if odd or n_flips > GOLDEN_MAX_FLIP_FRACTION * dm.numel():
+        raise AssertionError(f"golden {label}: {n_flips} pixels off by more "
+                             f"than {GOLDEN_ATOL}, {odd} of them not a "
+                             "cutoff flip")
+    return worst
+
+
+def golden_render(label, args, cfg, tex_idx):
+    """The golden path and the fused kernel on the same inputs and
+    texture picks: the golden render launches the blur once and the
+    raster never; both overflow nothing and render rain."""
+    fused = frame.render_frames(*args, cfg, tex_idx=tex_idx)
+    xla = dataclasses.replace(cfg, composite_mode="xla")
+    reset_counts()
+    golden = frame.render_frames(*args, xla, tex_idx=tex_idx)
+    torch.cuda.synchronize()
+    launches = (fused_raster.fused_raster_composite.launches,
+                blur_kernel.separable_blur.launches)
+    overflow = (int(golden.overflow.sum()), int(fused.overflow.sum()))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (golden.rainy_image, golden.rain_mask))
+    mass = golden.rain_mask.sum().item()
+    phase(f"[golden] {label}: xla render finite {finite}, mask mass "
+          f"{mass:.2f} (fused {fused.rain_mask.sum().item():.2f}); "
+          f"overflow xla / fused {overflow}; raster and blur launches "
+          f"during it {launches}")
+    if launches != (0, 1):
+        raise AssertionError(f"golden {label}: the xla render launched the "
+                             f"raster and the blur {launches} times, not "
+                             "(0, 1)")
+    if not finite or not mass > 1.0 or overflow != (0, 0):
+        raise AssertionError(f"golden {label}: finite {finite}, mass "
+                             f"{mass}, overflow {overflow}")
+    return golden, fused, launches
+
+
+def golden_phase(data, tex_idx, b_inputs, smi):
+    """The golden path (composite_mode "xla": patches, then a scatter)
+    on the card: (a) A's batch against the fused kernel on the same
+    texture picks, 0 raster and 1 blur launch during it; (b) B's default
+    ladder with the saturation planes, the same; (c) texture_mode
+    "gather" on A's frames 0-1 against the CPU; (d) the one-rank nccl
+    sharded render's xla branch against render_frames' within
+    GOLDEN_SHARD_ATOL; (e) images/s and peak memory of both paths on A
+    (information)."""
+    cfg, _, drops, bg, depth, tex, edges = data
+    args = (bg, depth, drops, tex, edges)
+    golden, fused, launches = golden_render("A", args, cfg, tex_idx)
+    err_a = golden_compare("A", golden, fused, ("rain_mask", "rainy_image"))
+
+    b_cfg, b_drops, b_bg, b_depth, b_tex, b_edges, b_idx = b_inputs
+    got, want, _ = golden_render(
+        "B", (b_bg, b_depth, b_drops, b_tex, b_edges), b_cfg, b_idx)
+    err_b = golden_compare("B", got, want,
+                           ("rain_mask", "rainy_image", "saturation_mask"))
+    del got, want
+
+    sub = slice(0, 2)
+    gcfg = dataclasses.replace(
+        cfg, composite_mode="xla", raster=dataclasses.replace(
+            cfg.raster, texture_mode="gather", supersample=2))
+    out = frame.render_frames(bg[sub], depth[sub], drops.map(lambda t: t[sub]),
+                              tex, edges, gcfg, tex_idx=tex_idx[sub])
+    mass = out.rain_mask.sum().item()
+    phase(f"[golden] gather (supersample 2), A's frames 0-1: mask mass "
+          f"{mass:.2f} (the series': {golden.rain_mask[sub].sum().item():.2f})")
+    if not mass > 1.0:
+        raise AssertionError(f"golden gather: no rain (mask mass {mass})")
+    compare_with_cpu("golden gather", out,
+                     cpu_render(args, gcfg, dict(tex_idx=tex_idx)),
+                     ("rain_mask", "rainy_image"))
+
+    distributed.initialize(free_address(), 1, 0, device=bg.device.type)
+    try:
+        mesh = pmesh.make_mesh(sp=1, device_type=bg.device.type)
+        xla = dataclasses.replace(cfg, composite_mode="xla")
+        reset_counts()
+        sharded = pmesh.render_frames_sharded(mesh, *args, xla,
+                                              tex_idx=tex_idx)
+        torch.cuda.synchronize()
+        s_launches = (fused_raster.fused_raster_composite.launches,
+                      blur_kernel.separable_blur.launches)
+    finally:
+        dist.destroy_process_group()
+    d_shard = max((getattr(sharded, n) - getattr(golden, n)).abs().max().item()
+                  for n in ("rain_mask", "rainy_image"))
+    backend = "nccl" if bg.device.type == "cuda" else "gloo"
+    phase(f"[golden] sharded xla branch, one {backend} rank: max|sharded - "
+          f"render_frames| {d_shard:.3g} (bar {GOLDEN_SHARD_ATOL:g}); "
+          f"raster and blur launches {s_launches}")
+    if d_shard > GOLDEN_SHARD_ATOL or s_launches != (0, 1) or not torch.equal(
+            sharded.overflow, golden.overflow):
+        raise AssertionError("the sharded xla branch disagrees with "
+                             "render_frames' golden path")
+    del golden, fused, sharded
+
+    xla = dataclasses.replace(cfg, composite_mode="xla")
+    rates = {}
+    for name, c in (("fused", cfg), ("xla", xla), ("xla", xla),
+                    ("fused", cfg)):
+        rates.setdefault(name, []).append(render_rate(
+            lambda b, d, dr: frame.render_frames(b, d, dr, tex, edges, c,
+                                                 tex_idx=tex_idx),
+            bg, depth, drops)[0])
+    peak = {}
+    for name, c in (("fused", cfg), ("xla", xla)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        frame.render_frames(*args, c, tex_idx=tex_idx)
+        torch.cuda.synchronize()
+        top = torch.cuda.max_memory_allocated()
+        peak[name] = f"{top / 2 ** 30:.3f} GiB ({(top - held) / 2 ** 30:.3f} "
+        peak[name] += "GiB above what was held before it)"
+    phase("[golden] images/s on A in turns fused / xla / xla / fused "
+          f"(information): {rates['fused'][0]:.2f} / {rates['xla'][0]:.2f} "
+          f"/ {rates['xla'][1]:.2f} / {rates['fused'][1]:.2f}; peak memory "
+          f"of one render (max_memory_allocated) fused {peak['fused']}, "
+          f"xla {peak['xla']}; on {smi}")
+    phase(f"[golden] largest xla-fused difference outside the cutoff "
+          f"flips: {max(err_a, err_b):.3g} (bar {GOLDEN_ATOL:g})")
+    return dict(launches=launches)
 
 
 def _write_dataset(root, n_frames=CLI_FRAMES):
@@ -1981,6 +2161,7 @@ def main() -> None:
     k2 = timed(multitile_phase, dev, smi)
     timed(determinism_phase, rungs, k2["rungs"],
           tuple(data[5].raw.shape[1:]), k2["tex_hw"])
+    golden = timed(golden_phase, data, tex_idx, k2.pop("inputs"), smi)
     cli_launches, cli_call, cli_outputs = timed(cli_phase, dev, smi)
     timed(farm_phase, cli_outputs, dev, smi)
     timed(cli_stages_phase, cli_call, smi)
@@ -1994,15 +2175,15 @@ def main() -> None:
                   plain_ms=k1["plain_ms"], bound_ms=k1_bound,
                   bound_by=k1_by, library_ms=None)
 
-    def by_path(kind, bench, one_rank, **more):
+    def by_path(kind, bench, one_rank, golden_launches, **more):
         """Launches of the bench render, the online CLI run, the offline
-        CLI run, the regimes' renders, the nuScenes CLI run and the
-        one-rank sharded render that carried ``kind`` (and ``more``), and
-        their sum."""
+        CLI run, the regimes' renders, the nuScenes CLI run, the
+        one-rank sharded render and the golden render of A that carried
+        ``kind`` (and ``more``), and their sum."""
         paths = {"bench": bench, "cli": cli_launches[kind],
                  "offline": offline_launches[kind],
                  "regimes": regimes[kind], "nuscenes": nusc[kind],
-                 "sharded": one_rank, **more}
+                 "sharded": one_rank, "golden": golden_launches, **more}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     # K1 and K3 are one launch of the same kernel on the bench path (K1's
@@ -2010,20 +2191,22 @@ def main() -> None:
     print(f"[device] nvidia-smi: {smi}", flush=True)
     print(json.dumps({"kernels": [
         {**raster, "replaces": KERNEL_REPLACES,
-         **by_path("k1", launches, sharded["launches"]),
+         **by_path("k1", launches, sharded["launches"],
+                   golden["launches"][0]),
          "max_abs_err": max(max_err, regimes["max_abs_err"],
                             rig["max_abs_err"], nusc_raster["max_abs_err"],
                             pair["max_abs_err"]),
          "ms": k1["ms"]},
         {**raster, "name": "fused_raster_multitile",
-         "replaces": K2_REPLACES, **by_path("k2", 0, 0),
+         "replaces": K2_REPLACES, **by_path("k2", 0, 0, 0),
          "max_abs_err": max(k2["max_abs_err"], regimes["multi_err"],
                             rig["multi_err"], nusc_raster["multi_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"]},
         {**raster, "name": "fused_raster_resident",
          "replaces": K3_REPLACES,
-         **by_path("k3", launches, sharded["launches"]),
+         **by_path("k3", launches, sharded["launches"],
+                   golden["launches"][0]),
          "max_abs_err": max(all_err, k2["all_rungs_err"],
                             regimes["max_abs_err"], rig["max_abs_err"],
                             nusc_raster["max_abs_err"], pair["max_abs_err"]),
@@ -2031,7 +2214,7 @@ def main() -> None:
         {"name": "separable_blur", "route": "cuda", "source": BLUR_SOURCE,
          "replaces": BLUR_REPLACES,
          **by_path("k4", blur_launches, sharded["blur_launches"],
-                   depth=depth["launches"]),
+                   golden["launches"][1], depth=depth["launches"]),
          **blur, "max_abs_err": max(blur["max_abs_err"],
                                     rig["blur"]["max_abs_err"],
                                     depth["max_abs_err"])}]}))

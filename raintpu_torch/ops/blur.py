@@ -12,6 +12,10 @@ Axes of ``_BLOCKED_BLUR_MIN_DIM`` or more, where the JAX package
 switches to block slabs, raise NotImplementedError here: no axis of the
 KITTI paths reaches it, and on a CUDA card the fog's stencil kernel
 (:mod:`raintpu_torch.ops.blur_kernel`) takes any axis length.
+
+:func:`variable_separable_blur` is the golden render path's per-drop
+defocus (``texture_mode="gather"``): every patch its own Gaussian,
+zero-padded, as two per-item band-matrix products.
 """
 
 from __future__ import annotations
@@ -101,3 +105,48 @@ def separable_blur(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
         return separable_blur_hw(img, kernel)
     return torch.movedim(
         separable_blur_hw(torch.movedim(img, -1, -3), kernel), -3, -1)
+
+
+def _band_matrix(sigma: torch.Tensor, size: int, radius: int) -> torch.Tensor:
+    """Per-item Gaussian band matrix (N, size, size).
+
+    Row i holds the scipy-compatible taps centered at i: truncated at
+    min(radius, floor(4*sigma + 0.5)), normalized by the FULL kernel
+    mass, so border rows lose mass exactly as a zero-padded convolution
+    does.
+    """
+    sigma = torch.clamp_min(sigma, 1e-6)
+    idx = torch.arange(size, dtype=torch.float32, device=sigma.device)
+    d = idx[None, :] - idx[:, None]                     # (size, size) k - i
+    item_radius = torch.clamp_max(torch.floor(4.0 * sigma + 0.5),
+                                  float(radius))
+    s2 = 2.0 * sigma[:, None, None] ** 2
+    w = torch.exp(-(d[None] ** 2) / s2)
+    w = torch.where(torch.abs(d)[None] <= item_radius[:, None, None], w, 0.0)
+    # Full-kernel normalizer (independent of position): the sum over
+    # taps |k| <= item_radius of exp(-k^2 / 2 sigma^2).
+    k = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                     device=sigma.device)
+    full = torch.exp(-(k[None, :] ** 2) / (2.0 * sigma[:, None] ** 2))
+    full = torch.where(torch.abs(k)[None, :] <= item_radius[:, None], full,
+                       0.0)
+    return w / full.sum(-1)[:, None, None]
+
+
+def variable_separable_blur(patches: torch.Tensor,
+                            sigma_rows: torch.Tensor,
+                            sigma_cols: torch.Tensor,
+                            radius: int) -> torch.Tensor:
+    """Blur a batch of patches, each with its own (row, col) sigmas.
+
+    patches: (N, H, W); sigma_rows/sigma_cols: (N,). ``radius`` is the
+    static largest kernel radius: a sigma above radius/4 keeps its
+    width but its taps stop at ``radius``. Zero padding: drop patches
+    carry a zero margin at least as wide as the blur support, so the
+    border cannot reach their content. Two per-item band products
+    (``torch.bmm``) in float32; callers keep TF32 off.
+    """
+    _, h, w = patches.shape
+    out = torch.bmm(_band_matrix(sigma_rows, h, radius), patches)
+    wc = _band_matrix(sigma_cols, w, radius)             # (N, W, W)
+    return torch.bmm(out, wc.transpose(1, 2))

@@ -1,8 +1,13 @@
-"""Per-drop raster parameters: geometry, routing and damped DCT series.
+"""Per-drop raster parameters and patches: geometry, routing, damped DCT
+series, and the golden path's rasterized patches.
 
-Counterpart of the fourier parameter side of ``raintpu.ops.rasterize``
-— the parameter contract of the fused raster+composite kernel
-(:mod:`raintpu_torch.ops.fused_raster`). Every drop is rasterized by
+Counterpart of ``raintpu.ops.rasterize``: the parameter contract of the
+fused raster+composite kernel (:mod:`raintpu_torch.ops.fused_raster`,
+:func:`raster_params_frame`), and the golden render path's patches
+(:func:`rasterize_frame_drops`: the same model evaluated patch by patch
+in plain PyTorch, the DCT series or a bilinear gather of the textures,
+for the scatter composite of :mod:`raintpu_torch.ops.composite`). Every
+drop is rasterized by
 an inverse map: one 3x3 matrix per drop takes patch coordinates to
 texture coordinates (a closed-form homography for Big drops, the
 composition rotate∘flip∘resize for Small/Medium drops). The texture is
@@ -28,9 +33,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from raintpu_torch.ops.fused_raster import (N_PARAMS, P_ADDB, P_ADDG,
-                                            P_ADDR, P_LO, P_SATB, P_SATG,
-                                            P_SATR)
+from raintpu_torch.ops.blur import variable_separable_blur
+from raintpu_torch.ops.fused_raster import (ALPHA_CUTOFF, N_PARAMS, P_ADDB,
+                                            P_ADDG, P_ADDR, P_LO, P_SATB,
+                                            P_SATG, P_SATR)
 from raintpu_torch.particles.schema import (TYPE_BIG, DropBatch,
                                             first_true_indices, take_drops)
 
@@ -64,8 +70,10 @@ class RasterConfig:
     supersample: int = 2
     # The reference hardcodes the CoC pixel size to 4.65e-6 m.
     coc_pixsize: float = 4.65e-6
-    # Kept field for field with the JAX RasterConfig; the fused path
-    # always evaluates the DCT series ("fourier").
+    # Texture sampling of the golden path (composite_mode "xla"):
+    # "fourier" evaluates the DCT series, "gather" bilinearly samples
+    # the stored textures (supersample^2 subsamples a pixel) and blurs
+    # each drop on its own. The fused path always evaluates the series.
     texture_mode: str = "fourier"
     # Modal blur: heavily defocused drops re-represent each blurred
     # axis profile on a per-drop padded interval (_modal_axis).
@@ -522,6 +530,219 @@ def _route_buckets(drops: DropBatch, geom: DropGeometry,
                 & (geom.sigma * 4.0 <= b.radius))
         bucket_id = torch.where(fits, bi, bucket_id)
     return bucket_id
+
+
+# The golden path evaluates patches in chunks of at most this many
+# window pixels (all frames' slots of a chunk at once), so its
+# transient (chunk, PH, PW) tensors stay bounded on the big rungs.
+PATCH_CHUNK_PX = 1 << 24
+
+
+@dataclasses.dataclass
+class RasterBucket:
+    """Rasterized (and blurred) drops of one size bucket, per frame."""
+
+    patches: torch.Tensor   # (..., C, PH, PW) float32 blurred gray in [0, 1]
+    anchor: torch.Tensor    # (..., C, 2) int32 image (x, y) of patch origin
+    drop_idx: torch.Tensor  # (..., C) int64 index into the frame's drops
+    valid: torch.Tensor     # (..., C) bool
+    overflow: torch.Tensor  # (...,) int32 drops that did not fit capacity
+
+
+def _sample_texture(textures: torch.Tensor, tex_idx: torch.Tensor,
+                    tx: torch.Tensor, ty: torch.Tensor) -> torch.Tensor:
+    """Bilinear fetch with a zero border. textures (K, TH, TW); tex_idx
+    (..., C); tx/ty (..., C, PH, PW) -> (..., C, PH, PW)."""
+    _, th, tw = textures.shape
+    x0 = torch.floor(tx)
+    y0 = torch.floor(ty)
+    fx = tx - x0
+    fy = ty - y0
+    x0i = x0.to(torch.int64)
+    y0i = y0.to(torch.int64)
+    idx = tex_idx.to(torch.int64)[..., None, None]
+
+    def tap(xi, yi):
+        inb = (xi >= 0) & (xi < tw) & (yi >= 0) & (yi < th)
+        vals = textures[idx, yi.clamp(0, th - 1), xi.clamp(0, tw - 1)]
+        return torch.where(inb, vals, 0.0)
+
+    return ((1 - fx) * (1 - fy) * tap(x0i, y0i)
+            + fx * (1 - fy) * tap(x0i + 1, y0i)
+            + (1 - fx) * fy * tap(x0i, y0i + 1)
+            + fx * fy * tap(x0i + 1, y0i + 1))
+
+
+def _patch_tex_coords(ph, pw, m_sel, offx, offy, sub_y=0.0, sub_x=0.0):
+    """Content-local coords and texture coords of every patch pixel:
+    (lx, ly, tx, ty), each broadcastable to (..., C, PH, PW). ``offx``/
+    ``offy`` (..., C): the content's start in the patch; ``sub_y``/
+    ``sub_x``: a subsample's offset in pixels."""
+    dev = m_sel.device
+    ii = torch.arange(ph, dtype=torch.float32, device=dev) + sub_y
+    jj = torch.arange(pw, dtype=torch.float32, device=dev) + sub_x
+    ly = ii[:, None] - offy[..., None, None]            # (..., C, PH, 1)
+    lx = jj[None, :] - offx[..., None, None]            # (..., C, 1, PW)
+    m = m_sel[..., None, None]
+
+    def row(k):
+        return (m[..., k, 0, :, :] * lx + m[..., k, 1, :, :] * ly
+                + m[..., k, 2, :, :])
+
+    hx, hy, hz = row(0), row(1), row(2)
+    hz = torch.where(torch.abs(hz) < 1e-9, 1e-9, hz)
+    return lx, ly, hx / hz, hy / hz
+
+
+def _raster_bucket_gather(b: BucketSpec, supersample, textures, t_sel,
+                          m_sel, wh_c, offx, offy) -> torch.Tensor:
+    """Supersampled bilinear gather of the stored textures: the mean of
+    ``supersample``^2 subsamples a pixel (accumulated at (PH, PW)), each
+    zero outside the content rect, clipped to [0, 1] as the reference
+    clips after its warp."""
+    s = supersample
+    g = None
+    for sy in range(s):
+        for sx in range(s):
+            dy = (sy + 0.5) / s - 0.5
+            dx = (sx + 0.5) / s - 0.5
+            lx, ly, tx, ty = _patch_tex_coords(b.ph, b.pw, m_sel, offx,
+                                               offy, dy, dx)
+            inside = ((lx > -0.5) & (lx < wh_c[..., 0, None, None] - 0.5)
+                      & (ly > -0.5) & (ly < wh_c[..., 1, None, None] - 0.5))
+            sample = torch.where(inside,
+                                 _sample_texture(textures, t_sel, tx, ty),
+                                 0.0)
+            g = sample if g is None else g + sample
+    return torch.clamp(g / (s * s), 0.0, 1.0)
+
+
+def _raster_bucket_fourier(b: BucketSpec, fourier, t_sel, m_sel, wh_c,
+                           offx, offy, sigma, tex_hw, apply_defocus: bool,
+                           band=None, modal: bool = True) -> torch.Tensor:
+    """Analytic rasterization from the separable DCT streak bank: one
+    cosine-series evaluation a pixel (see fourier_drop_coefficients for
+    the damping), times the tanh-erf content window — the blurred
+    indicator of the content band in normalized texture coordinates,
+    hard-cut at 4 sigma + 0.25 — clipped, and 0 below ALPHA_CUTOFF."""
+    th, tw = tex_hw
+    (ayc, bxc, m_out, ul, uu, vl, vu, sig_x, sig_y) = \
+        fourier_drop_coefficients(b, fourier, t_sel, m_sel, wh_c, sigma,
+                                  tex_hw, apply_defocus, band=band,
+                                  modal=modal)
+    _, _, tx, ty = _patch_tex_coords(b.ph, b.pw, m_out, offx, offy)
+    xhat = (tx + 0.5) / tw
+    yhat = (ty + 0.5) / th
+    ul, uu, vl, vu = (t[..., None, None] for t in (ul, uu, vl, vu))
+
+    erf = tanh_erf
+    sqrt2 = 1.4142135
+    sx = torch.clamp_min(sig_x, 2e-3)[..., None, None]
+    sy = torch.clamp_min(sig_y, 2e-3)[..., None, None]
+    win = (0.5 * (erf((xhat - ul) / (sqrt2 * sx))
+                  - erf((xhat - uu) / (sqrt2 * sx)))
+           * 0.5 * (erf((yhat - vl) / (sqrt2 * sy))
+                    - erf((yhat - vu) / (sqrt2 * sy))))
+    mx = 0.25 + 4.0 * sx
+    my = 0.25 + 4.0 * sy
+    win = torch.where((xhat >= ul - mx) & (xhat <= uu + mx)
+                      & (yhat >= vl - my) & (yhat <= vu + my), win, 0.0)
+
+    flat = xhat.shape[:-2] + (b.ph * b.pw,)
+    uy = _eval_dct_rank_series(ayc, yhat.reshape(flat))
+    vx = _eval_dct_rank_series(bxc, xhat.reshape(flat))
+    g = uy[0] * vx[0]
+    for r in range(1, ayc.shape[-2]):
+        g = g + uy[r] * vx[r]
+    g = torch.clamp(g.reshape(xhat.shape), 0.0, 1.0) * win
+    return torch.where(g > ALPHA_CUTOFF, g, 0.0)
+
+
+def rasterize_frame_drops(drops: DropBatch,
+                          geom: DropGeometry,
+                          textures: torch.Tensor,
+                          tex_idx: torch.Tensor,
+                          image_wh: Tuple[int, int],
+                          cfg: RasterConfig,
+                          apply_defocus: bool,
+                          fourier=None) -> Tuple[RasterBucket, ...]:
+    """Route drops into size buckets and rasterize (and defocus) each
+    bucket's patches: the golden render path's raster.
+
+    ``drops``: one frame (N, ...) or a batch (B, N, ...); ``textures``:
+    the raw (K, TH, TW) bank. With cfg.texture_mode "fourier" and
+    ``fourier`` = (ay, bx) DCT coefficients (K, R, My) / (K, R, Mx), the
+    patches are the analytic series (:func:`_raster_bucket_fourier`),
+    its damping the defocus; else the bilinear gather of the textures
+    (:func:`_raster_bucket_gather`) followed, under defocus, by the
+    per-drop Gaussian :func:`variable_separable_blur` (sigma rows,
+    sigma/2 columns). A bucket's slots hold its drops in ascending drop
+    index; slots past the fullest frame's valid ones are zeros without
+    being evaluated, and every invalid slot's patch is 0.
+    Returns one :class:`RasterBucket` per cfg.buckets entry.
+    """
+    w_img, h_img = image_wh
+    bucket_id = _route_buckets(drops, geom, cfg)
+    gather = cfg.texture_mode != "fourier" or fourier is None
+
+    out = []
+    for bi, b in enumerate(cfg.buckets):
+        mask = drops.valid & (bucket_id == bi)
+        idx, sel_valid, overflow = first_true_indices(mask, b.capacity)
+
+        m_sel = take_drops(geom.M, idx)
+        minc = take_drops(geom.min_c, idx)
+        sigma = torch.clamp_max(take_drops(geom.sigma, idx), b.radius / 4.0)
+        shift = torch.clamp_max(take_drops(geom.shift, idx), b.radius)
+        wh_c = take_drops(geom.content_wh, idx)
+        t_sel = take_drops(tex_idx, idx)
+        band = take_drops(geom.band, idx)
+
+        # Patch anchor clip(minC - shift, 0, image) and the content's
+        # start in the patch (the reference's delta-crop). An invalid
+        # slot's NaN anchor becomes 0, as XLA converts it, so that the
+        # scatter's indices stay inside the planes.
+        a = torch.nan_to_num(minc - shift[..., None].to(minc.dtype), nan=0.0)
+        ax = torch.clamp(a[..., 0], 0.0, float(w_img)).to(torch.int32)
+        ay = torch.clamp(a[..., 1], 0.0, float(h_img)).to(torch.int32)
+        offx = minc[..., 0] - ax.to(minc.dtype)
+        offy = minc[..., 1] - ay.to(minc.dtype)
+
+        lead = sel_valid.shape[:-1]
+        patches = torch.zeros(lead + (b.capacity, b.ph, b.pw),
+                              dtype=torch.float32, device=idx.device)
+        n_eval = int(sel_valid.sum(-1).max()) if sel_valid.numel() else 0
+        frames = max(1, math.prod(lead))
+        step = max(1, PATCH_CHUNK_PX // (frames * b.ph * b.pw))
+        for c0 in range(0, n_eval, step):
+            cs = slice(c0, min(c0 + step, n_eval))
+
+            def part(t, trailing=0):
+                return t[(Ellipsis, cs) + (slice(None),) * trailing]
+
+            if gather:
+                g = _raster_bucket_gather(
+                    b, cfg.supersample, textures, part(t_sel),
+                    part(m_sel, 2), part(wh_c, 1), part(offx), part(offy))
+                if apply_defocus:
+                    s = part(sigma).reshape(-1)
+                    g = variable_separable_blur(
+                        g.reshape(-1, b.ph, b.pw), s, s / 2.0,
+                        b.radius).reshape(g.shape)
+            else:
+                g = _raster_bucket_fourier(
+                    b, fourier, part(t_sel), part(m_sel, 2), part(wh_c, 1),
+                    part(offx), part(offy), part(sigma),
+                    tuple(textures.shape[1:]), apply_defocus,
+                    band=part(band, 1), modal=cfg.modal_blur)
+            # where(), not a product: a degenerate slot's NaN must not
+            # survive as NaN * 0.
+            patches[..., cs, :, :] = torch.where(
+                part(sel_valid)[..., None, None], g, 0.0)
+        out.append(RasterBucket(
+            patches=patches, anchor=torch.stack([ax, ay], -1),
+            drop_idx=idx, valid=sel_valid, overflow=overflow.to(torch.int32)))
+    return tuple(out)
 
 
 @dataclasses.dataclass

@@ -6,15 +6,14 @@ with one process per rank. The ranks form a (dp, sp) mesh:
 - ``dp`` (data parallel): each dp row renders its own frames; the axis
   never communicates.
 - ``sp`` (streak parallel): the ranks of a dp row split every frame's
-  drops. Each rasterizes its share into field planes with the fused
-  kernel, and one all-reduce (SUM) over the row's sp group adds the
-  planes, which are order-independent sums over drops, before each rank
-  finishes the frames. The fog and the envmaps run on every sp rank
-  (replicated, as in the JAX package).
+  drops. Each accumulates its share into field planes — with the fused
+  kernel, or under composite_mode "xla" with the golden path's patches
+  and scatter — and one all-reduce (SUM) over the row's sp group adds
+  the planes, which are order-independent sums over drops, before each
+  rank finishes the frames. The fog and the envmaps run on every sp
+  rank (replicated, as in the JAX package).
 
-Only the JAX package's fused path is ported (the port has one field
-accumulation path), and there is no cache of compiled steps: PyTorch
-runs eagerly.
+There is no cache of compiled steps: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -94,10 +93,13 @@ def render_frames_sharded(mesh: DeviceMesh,
     keeps its sp slice of drops, picks and noise, so the render does not
     depend on the sp layout. Every sp rank of a dp row must therefore
     pass an equally seeded ``generator``, or the same ``tex_idx`` /
-    ``noise_deg`` (B, N). Each rank runs the fused raster on its slice,
-    the planes and the overflow counts are summed over the sp group (no
-    collective when it has one rank), and the rank returns its dp row's
-    ``FrameOutput``, the same on every sp rank of the row.
+    ``noise_deg`` (B, N). Each rank accumulates its slice's fields as
+    cfg.resolved_composite_mode() says (the fused kernel, or under "xla"
+    :func:`raintpu_torch.render.frame.drop_fields`), the field planes
+    and the overflow counts are summed over the sp group (one
+    all-reduce each; no collective when it has one rank), and the rank
+    returns its dp row's ``FrameOutput``, the same on every sp rank of
+    the row.
     ``cfg.save_envmap`` and ``cfg.compute_saturation_mask`` add their
     outputs; the pano envmap is not taken (nor by the JAX package's
     sharded render).
@@ -113,10 +115,18 @@ def render_frames_sharded(mesh: DeviceMesh,
     n_local = n // sp
     start = mesh.get_local_rank("sp") * n_local
     mine = slice(start, start + n_local)
-    fogged, env_save, planes, overflow = frame_mod.fused_field_planes(
-        bg, depth, drops.map(lambda t: t[:, mine]), textures, bin_edges,
-        cfg, tex_idx=tex_idx[:, mine],
-        noise_deg=None if noise_deg is None else noise_deg[:, mine])
+    draws = dict(tex_idx=tex_idx[:, mine],
+                 noise_deg=None if noise_deg is None else noise_deg[:, mine])
+    drops = drops.map(lambda t: t[:, mine])
+    if cfg.resolved_composite_mode() == "xla":
+        fogged, env_photo, env_save = frame_mod.frame_background(bg, depth,
+                                                                 cfg)
+        fields, overflow = frame_mod.drop_fields(env_photo, drops, textures,
+                                                 bin_edges, cfg, **draws)
+        planes = fields.planes()
+    else:
+        fogged, env_save, planes, overflow = frame_mod.fused_field_planes(
+            bg, depth, drops, textures, bin_edges, cfg, **draws)
     if sp > 1:
         group = mesh.get_group("sp")
         dist.all_reduce(planes, op=dist.ReduceOp.SUM, group=group)

@@ -1,8 +1,10 @@
 """The batched per-frame render pipeline in PyTorch.
 
-Counterpart of the fused path of ``raintpu.render.frame``
-(``render_frames`` -> ``_render_frames_fused`` -> ``fused_field_planes``),
-stage by stage over a batch of B frames:
+Counterpart of ``raintpu.render.frame``: its fused path
+(``render_frames`` -> ``_render_frames_fused`` -> ``fused_field_planes``)
+and its XLA "golden" path (``render_frame`` -> ``drop_fields`` ->
+``drop_patches`` + ``composite_drops``). The fused path runs stage by
+stage over a batch of B frames:
 
     fog attenuation          batched_fog -> ops.fog (the stencil blur
                              kernel, ops.blur_kernel, on a GPU)
@@ -13,6 +15,16 @@ stage by stage over a batch of B frames:
     streak raster+composite  ops.fused_raster (the CUDA kernel on a GPU;
                              5 planes, or 8 with the saturation mask)
     blend + contrast adjust  ops.composite.blend, finalize_frame
+
+The golden path (``composite_mode="xla"``, and :func:`render_frame`
+always) shares the fog, envmaps, photometry and per-drop geometry, then
+rasterizes every drop into a patch of its rung
+(ops.rasterize.rasterize_frame_drops: the DCT series, or with
+``texture_mode="gather"`` a bilinear gather of the textures and a
+per-drop blur) and scatter-adds the patches into the fields
+(ops.composite.composite_drops). It never calls the raster kernel nor
+its plain version: it is the independent algorithm the fused kernel is
+held to.
 
 Every option of the JAX render goes through these stages: the physics
 strategy or the paper's baselines ``white`` and ``naive_db`` (unit
@@ -46,8 +58,8 @@ class PipelineConfig:
     """Static per-weather render configuration.
 
     The fields of the JAX PipelineConfig, less its TPU layout knobs
-    (composite_mode, fields_dtype, row_strip, pair_eval, narrow_dma,
-    resident): the port has one field-accumulation path, float32.
+    (fields_dtype, row_strip, pair_eval, narrow_dma, resident): the
+    fused path accumulates float32 planes in one kernel launch.
     """
 
     settings: RenderSettings
@@ -57,6 +69,15 @@ class PipelineConfig:
     env_downsample: int = 4
     save_envmap: bool = False
     compute_saturation_mask: bool = False
+    # Field accumulation path:
+    #   "fused" -> the raster+composite kernel (its plain version on CPU
+    #              tensors): ops.fused_raster
+    #   "xla"   -> patches first, then a scatter-add (the golden path)
+    #   "auto"  -> "fused" on every device. The JAX package resolves
+    #              "auto" by backend ("fused" on a TPU, "xla" elsewhere)
+    #              because its kernel compiles only for the TPU; the
+    #              port's fused path runs on the CPU too.
+    composite_mode: str = "auto"
     # Extra block-reduction of the envmap features used only for the
     # per-drop cone photometry (on top of env_downsample); 1 = exact.
     cone_downsample: int = 1
@@ -64,6 +85,16 @@ class PipelineConfig:
     # photometry envmap at the cds-effective resolution (see
     # env_downsamples).
     env_fold: bool = True
+
+    def resolved_composite_mode(self) -> str:
+        mode = self.composite_mode
+        if mode == "auto":
+            return "fused"
+        if mode not in ("fused", "xla"):
+            raise ValueError(
+                f"composite_mode={mode!r}: expected 'auto', 'fused' or "
+                "'xla' (the two-stage 'pallas' mode was retired)")
+        return mode
 
     @property
     def image_wh(self) -> Tuple[int, int]:
@@ -80,6 +111,9 @@ class PipelineConfig:
 
 @dataclasses.dataclass
 class FrameOutput:
+    """A render's outputs: (B, ...) from render_frames, without the B
+    from render_frame."""
+
     rainy_image: torch.Tensor          # (B, H, W, 3) RGB in [0, 1]
     rain_mask: torch.Tensor            # (B, H, W) accumulated alpha
     envmap: Optional[torch.Tensor]     # (B, H, W_env, 3) or None
@@ -202,6 +236,45 @@ def frame_draws(drops: DropBatch, bin_edges: torch.Tensor,
     return tex_idx, noise_deg
 
 
+def _drop_prep(env_rgb: Optional[torch.Tensor], drops: DropBatch,
+               tex_hw, bin_edges: torch.Tensor, cfg: PipelineConfig,
+               generator: Optional[torch.Generator],
+               tex_idx: Optional[torch.Tensor],
+               noise_deg: Optional[torch.Tensor]):
+    """The per-drop stage both paths share: photometry gains, the
+    draws (:func:`frame_draws`), geometry and blend coefficients.
+    Under 'white' and 'naive_db' the gains are ones and nothing is
+    defocused (``env_rgb`` is not read). Returns (gains, tex_idx, geom,
+    lo, add_rgb)."""
+    st = cfg.settings
+    cam = st.camera
+    physics = st.rendering_strategy is None
+    if physics:
+        env = photometry_ops.env_features(
+            env_rgb, downsample=env_downsamples(cfg)[1])
+        mid = (drops.wp1 + drops.wp2) / 2.0
+        gains = photometry_ops.drop_colors(
+            mid, env, sphere_radius=st.sphere_radius,
+            fov_deg=st.drop_fov_deg, irrad_type=st.irrad_type)
+    else:
+        gains = torch.ones(drops.valid.shape + (3,), dtype=torch.float32,
+                           device=drops.valid.device)
+
+    tex_idx, noise_deg = frame_draws(drops, bin_edges, cfg, generator,
+                                     tex_idx, noise_deg)
+    geom_d = raster_ops.drop_geometry(
+        drops, tex_hw, cfg.image_wh,
+        focal_m=cam.focal_m, f_number=cam.f_number,
+        focus_plane=st.focus_plane, coc_pixsize=cfg.raster.coc_pixsize,
+        apply_defocus=physics, noise_deg=noise_deg)
+    lo, add_scale = composite_ops.blend_coefficients(
+        drops.iw1, drops.iw2, drops.length,
+        exposure_s=cam.exposure_s,
+        opacity_attenuation=st.opacity_attenuation,
+        rendering_strategy=st.rendering_strategy)
+    return gains, tex_idx, geom_d, lo, gains * add_scale[..., None]
+
+
 def drop_fused_params(env_rgb: Optional[torch.Tensor], drops: DropBatch,
                       textures, bin_edges: torch.Tensor, cfg: PipelineConfig,
                       generator: Optional[torch.Generator] = None,
@@ -220,47 +293,67 @@ def drop_fused_params(env_rgb: Optional[torch.Tensor], drops: DropBatch,
     (``env_rgb`` is not read). The saturation rows carry the drops'
     pre-tau colors when cfg.compute_saturation_mask, else 0.
     Returns (list of rasterize.RungParams, overflow (B, n_buckets))."""
-    st = cfg.settings
-    cam = st.camera
     tex_hw = tuple(textures.raw.shape[1:])
-    physics = st.rendering_strategy is None
-    dev = drops.valid.device
-
-    if physics:
-        env = photometry_ops.env_features(
-            env_rgb, downsample=env_downsamples(cfg)[1])
-        mid = (drops.wp1 + drops.wp2) / 2.0
-        gains = photometry_ops.drop_colors(
-            mid, env, sphere_radius=st.sphere_radius,
-            fov_deg=st.drop_fov_deg, irrad_type=st.irrad_type)
-    else:
-        gains = torch.ones(drops.valid.shape + (3,), dtype=torch.float32,
-                           device=dev)
-
-    tex_idx, noise_deg = frame_draws(drops, bin_edges, cfg, generator,
-                                     tex_idx, noise_deg)
-
-    geom_d = raster_ops.drop_geometry(
-        drops, tex_hw, cfg.image_wh,
-        focal_m=cam.focal_m, f_number=cam.f_number,
-        focus_plane=st.focus_plane, coc_pixsize=cfg.raster.coc_pixsize,
-        apply_defocus=physics, noise_deg=noise_deg)
-
-    lo, add_scale = composite_ops.blend_coefficients(
-        drops.iw1, drops.iw2, drops.length,
-        exposure_s=cam.exposure_s,
-        opacity_attenuation=st.opacity_attenuation,
-        rendering_strategy=st.rendering_strategy)
-    add_rgb = gains * add_scale[..., None]
-
+    gains, tex_idx, geom_d, lo, add_rgb = _drop_prep(
+        env_rgb, drops, tex_hw, bin_edges, cfg, generator, tex_idx,
+        noise_deg)
     rungs = raster_ops.raster_params_frame(
         drops, geom_d, tex_hw, tex_idx, cfg.image_wh, cfg.raster,
-        apply_defocus=physics, fourier=(textures.ay, textures.bx))
+        apply_defocus=cfg.settings.rendering_strategy is None,
+        fourier=(textures.ay, textures.bx))
     sat_rgb = gains if cfg.compute_saturation_mask else None
     for rung in rungs:
         raster_ops.fill_blend_rows(rung, lo, add_rgb, sat_rgb)
     overflow = torch.stack([r.overflow for r in rungs], dim=-1)
     return rungs, overflow
+
+
+def drop_patches(env_rgb: Optional[torch.Tensor], drops: DropBatch,
+                 textures, bin_edges: torch.Tensor, cfg: PipelineConfig,
+                 generator: Optional[torch.Generator] = None,
+                 tex_idx: Optional[torch.Tensor] = None,
+                 noise_deg: Optional[torch.Tensor] = None):
+    """The golden path's per-drop stage up to rasterized patches:
+    photometry, draws, geometry and rasterization with the defocus
+    folded in, for one frame (N, ...) or a batch (B, N, ...).
+
+    ``textures``: a TextureBank (raw textures and DCT factors: the
+    series, unless cfg.raster.texture_mode is "gather") or a plain
+    (K, TH, TW) tensor (always the gather). Draws and strategies as in
+    :func:`drop_fused_params`. Returns (buckets, lo (..., N), add_rgb
+    (..., N, 3), gains (..., N, 3), overflow (..., n_buckets)); gains
+    is the drops' pre-tau color, the saturation mask's payload."""
+    fourier = None
+    if hasattr(textures, "ay"):
+        fourier = (textures.ay, textures.bx)
+        textures = textures.raw
+    gains, tex_idx, geom_d, lo, add_rgb = _drop_prep(
+        env_rgb, drops, tuple(textures.shape[1:]), bin_edges, cfg,
+        generator, tex_idx, noise_deg)
+    buckets = raster_ops.rasterize_frame_drops(
+        drops, geom_d, textures, tex_idx, cfg.image_wh, cfg.raster,
+        apply_defocus=cfg.settings.rendering_strategy is None,
+        fourier=fourier)
+    overflow = torch.stack([b.overflow for b in buckets], dim=-1)
+    return buckets, lo, add_rgb, gains, overflow
+
+
+def drop_fields(env_rgb: Optional[torch.Tensor], drops: DropBatch,
+                textures, bin_edges: torch.Tensor, cfg: PipelineConfig,
+                generator: Optional[torch.Generator] = None,
+                tex_idx: Optional[torch.Tensor] = None,
+                noise_deg: Optional[torch.Tensor] = None):
+    """:func:`drop_patches` and the scatter composite: the golden
+    path's fields. Returns (composite.FieldMaps (..., H, W), overflow
+    (..., n_buckets)); the saturation mask is summed when
+    cfg.compute_saturation_mask."""
+    buckets, lo, add_rgb, gains, overflow = drop_patches(
+        env_rgb, drops, textures, bin_edges, cfg, generator, tex_idx,
+        noise_deg)
+    fields = composite_ops.composite_drops(
+        cfg.image_hw, buckets, lo, add_rgb,
+        sat_rgb_all=gains if cfg.compute_saturation_mask else None)
+    return fields, overflow
 
 
 def kernel_rungs(rungs, cfg: PipelineConfig):
@@ -301,14 +394,8 @@ def crop_field_planes(planes: torch.Tensor,
                       cfg: PipelineConfig) -> composite_ops.FieldMaps:
     """(B, 5 | 8, >=H, >=W) planes -> FieldMaps at image size."""
     h, w = cfg.image_hw
-    cropped = planes[..., :h, :w].to(torch.float32)
-    sat = None
-    if planes.shape[1] == N_PLANES_SAT:
-        sat = torch.movedim(cropped[:, 5:8], 1, -1)
-    return composite_ops.FieldMaps(
-        log_att=cropped[:, 1],
-        additive=torch.movedim(cropped[:, 2:5], 1, -1),
-        alpha=cropped[:, 0], sat=sat)
+    return composite_ops.FieldMaps.from_planes(
+        planes[..., :h, :w].to(torch.float32))
 
 
 def finalize_frame(bg, fogged, fields: composite_ops.FieldMaps, env_save,
@@ -325,6 +412,17 @@ def finalize_frame(bg, fogged, fields: composite_ops.FieldMaps, env_save,
                        saturation_mask=fields.sat)
 
 
+def _render_frames_xla(bg, depth, drops: DropBatch, textures, bin_edges,
+                       cfg: PipelineConfig, generator, tex_idx, noise_deg,
+                       pano) -> FrameOutput:
+    """The golden path over a batch: frame_background, drop_fields,
+    finalize_frame."""
+    fogged, env_photo, env_save = frame_background(bg, depth, cfg, pano)
+    fields, overflow = drop_fields(env_photo, drops, textures, bin_edges,
+                                   cfg, generator, tex_idx, noise_deg)
+    return finalize_frame(bg, fogged, fields, env_save, overflow, cfg)
+
+
 def render_frames(bg: torch.Tensor,
                   depth: torch.Tensor,
                   drops: DropBatch,
@@ -339,15 +437,51 @@ def render_frames(bg: torch.Tensor,
 
     bg: (B, H, W, 3) RGB in [0, 1]; depth: (B, H, W) metric depth (m);
     drops: DropBatch with leading dim B; textures: data.textures
-    TextureBank; bin_edges: (4,) texture ratio-bin edges. Texture picks
-    come from ``tex_idx`` (B, N) when given, else from ``generator``;
-    so does the streak noise ``noise_deg`` (B, N), in degrees, when the
-    settings' noise_scale * noise_std is not 0 (see
+    TextureBank (under composite_mode "xla" also a plain (K, TH, TW)
+    tensor, sampled by the gather); bin_edges: (4,) texture ratio-bin
+    edges. Texture picks come from ``tex_idx`` (B, N) when given, else
+    from ``generator``; so does the streak noise ``noise_deg`` (B, N),
+    in degrees, when the settings' noise_scale * noise_std is not 0 (see
     :func:`drop_fused_params`). ``pano`` (B, He, We, 3): the captured
-    panoramas, read when the settings' env_type is 'pano'.
+    panoramas, read when the settings' env_type is 'pano'. The fields
+    accumulate by cfg.resolved_composite_mode(): the fused kernel, or
+    the golden path's patches and scatter ("xla").
     """
+    if cfg.resolved_composite_mode() == "xla":
+        return _render_frames_xla(bg, depth, drops, textures, bin_edges,
+                                  cfg, generator, tex_idx, noise_deg, pano)
     fogged, env_save, planes, overflow = fused_field_planes(
         bg, depth, drops, textures, bin_edges, cfg, generator, tex_idx,
         noise_deg, pano)
     return finalize_frame(bg, fogged, crop_field_planes(planes, cfg),
                           env_save, overflow, cfg)
+
+
+def render_frame(bg: torch.Tensor,
+                 depth: torch.Tensor,
+                 drops: DropBatch,
+                 textures,
+                 bin_edges: torch.Tensor,
+                 cfg: PipelineConfig,
+                 generator: Optional[torch.Generator] = None,
+                 tex_idx: Optional[torch.Tensor] = None,
+                 noise_deg: Optional[torch.Tensor] = None,
+                 pano: Optional[torch.Tensor] = None) -> FrameOutput:
+    """Render rain onto one frame through the golden path, whatever
+    cfg.composite_mode says (as the JAX package's render_frame).
+
+    bg (H, W, 3), depth (H, W), drops a one-frame DropBatch (N, ...),
+    tex_idx / noise_deg (N,) and pano (He, We, 3) when given; the other
+    arguments as :func:`render_frames`, whose draws it makes (a frame's
+    draws from ``generator`` equal render_frames' on a batch of that one
+    frame). Returns a FrameOutput without the batch dimension.
+    """
+    def one(t):
+        return None if t is None else t[None]
+
+    out = _render_frames_xla(one(bg), one(depth), drops.map(one), textures,
+                             bin_edges, cfg, generator, one(tex_idx),
+                             one(noise_deg), one(pano))
+    return FrameOutput(**{f.name: None if getattr(out, f.name) is None
+                          else getattr(out, f.name)[0]
+                          for f in dataclasses.fields(out)})

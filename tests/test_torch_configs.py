@@ -1,5 +1,6 @@
 """The port's config dataclasses are field-for-field copies of the JAX
-package's (PipelineConfig less its TPU layout knobs)."""
+package's (PipelineConfig less its TPU layout knobs; its composite_mode
+is the port's too)."""
 
 import dataclasses
 
@@ -14,8 +15,8 @@ from raintpu_torch.physics import simulator as tsim
 from raintpu_torch.render import frame as tframe
 
 # TPU layout knobs of the JAX PipelineConfig that the port leaves out.
-TPU_ONLY = {"composite_mode", "fields_dtype", "row_strip", "pair_eval",
-            "narrow_dma", "resident"}
+TPU_ONLY = {"fields_dtype", "row_strip", "pair_eval", "narrow_dma",
+            "resident"}
 
 _LADDER = dict(ph=24, pw=32, radius=5, capacity=224, modes_y=12,
                modes_x=6, ranks=3)
@@ -37,7 +38,8 @@ def _pair(name):
         return jrz.RasterConfig.default(320), trz.RasterConfig.default(320)
     if name == "PipelineConfig":
         kw = dict(settings=_settings(), image_hw=(48, 96), fallrate=25.0,
-                  env_downsample=8, cone_downsample=4, env_fold=False)
+                  env_downsample=8, cone_downsample=4, env_fold=False,
+                  composite_mode="xla")
         return (jframe.PipelineConfig(
                     raster=jrz.RasterConfig.default(64), **kw),
                 tframe.PipelineConfig(

@@ -562,3 +562,75 @@ def test_sharded_two_ranks_on_the_card(cuda, tmp_path):
         np.testing.assert_array_equal(got["overflow"],
                                       want.overflow.cpu().numpy())
         assert abs(float(got["mask"].sum()) - mass) / mass < 1e-5
+
+
+def _cutoff_flips(got, want, atol=2e-4):
+    """Pixels whose rain masks differ by more than ``atol``: each must be
+    a cutoff flip — one drop's alpha kept at ALPHA_CUTOFF by one path
+    only, a difference of ALPHA_CUTOFF within 1e-6."""
+    d = (got - want).abs()
+    flips = d > atol
+    assert ((d[flips] - tfr.ALPHA_CUTOFF).abs() <= 1e-6).all()
+    return flips
+
+
+@pytest.mark.gpu
+def test_golden_path_on_the_card_matches_the_kernel(cuda):
+    """composite_mode "xla" on CUDA tensors renders on the card — the
+    fog's blur launch and no raster launch — within 2e-4 of the fused
+    kernel on the same texture picks, the saturation mask included, but
+    for at most 2 cutoff flips (the two paths round a pixel's texture
+    coordinates differently)."""
+    import dataclasses
+
+    from raintpu_torch.ops.rasterize import select_textures
+
+    cfg, gen, drops, bg, depth, tex, edges = _scene(cuda)
+    cfg = dataclasses.replace(cfg, compute_saturation_mask=True)
+    tex_idx = select_textures(drops, edges, gen)
+    fused = frame.render_frames(bg, depth, drops, tex, edges, cfg,
+                                tex_idx=tex_idx)
+    before = (tfr.fused_raster_composite.launches,
+              blur_kernel.separable_blur.launches)
+    golden = frame.render_frames(
+        bg, depth, drops, tex, edges,
+        dataclasses.replace(cfg, composite_mode="xla"), tex_idx=tex_idx)
+    torch.cuda.synchronize()
+    after = (tfr.fused_raster_composite.launches,
+             blur_kernel.separable_blur.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+    assert golden.rain_mask.is_cuda and golden.rain_mask.sum() > 1.0
+    assert torch.equal(golden.overflow, fused.overflow)
+    flips = _cutoff_flips(golden.rain_mask, fused.rain_mask)
+    assert int(flips.sum()) <= 2
+    for name in ("rain_mask", "rainy_image", "saturation_mask"):
+        g, f = getattr(golden, name), getattr(fused, name)
+        keep = ~flips.reshape(flips.shape + (1,) * (g.ndim - flips.ndim))
+        assert torch.where(keep, (g - f).abs(), 0.0).max() <= 2e-4, name
+
+
+@pytest.mark.gpu
+def test_golden_gather_on_the_card_matches_the_cpu(cuda):
+    """render_frame with texture_mode "gather" (supersample 2) on the
+    card against the same render on the CPU, within the GPU-vs-CPU
+    render bars of chip_smoke.py: max 5e-3, at most 1e-3 of the pixels
+    off by more than 2e-4."""
+    import dataclasses
+
+    from raintpu_torch.ops.rasterize import select_textures
+
+    cfg, gen, drops, bg, depth, tex, edges = _scene(cuda)
+    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(
+        cfg.raster, texture_mode="gather", supersample=2))
+    tex_idx = select_textures(drops, edges, gen)[0]
+    one = drops.map(lambda t: t[0])
+    got = frame.render_frame(bg[0], depth[0], one, tex, edges, cfg,
+                             tex_idx=tex_idx)
+    want = frame.render_frame(bg[0].cpu(), depth[0].cpu(), one.to("cpu"),
+                              tex.to("cpu"), edges.cpu(), cfg,
+                              tex_idx=tex_idx.cpu())
+    assert got.rain_mask.is_cuda and want.rain_mask.sum() > 1.0
+    for name in ("rain_mask", "rainy_image"):
+        d = (getattr(got, name).cpu() - getattr(want, name)).abs()
+        assert d.max() <= 5e-3, name
+        assert (d > 2e-4).float().mean() <= 1e-3, name

@@ -57,7 +57,13 @@ _SCRIPT = textwrap.dedent("""
     from raintpu_torch.ops.rasterize import BucketSpec, RasterConfig
     from raintpu_torch.physics.simulator import SimConfig, simulate_frames
     from raintpu_torch.render.camera import CameraSettings, RenderSettings
-    from raintpu_torch.render.frame import PipelineConfig, render_frames
+    from raintpu_torch.render.frame import (PipelineConfig, render_frame,
+                                            render_frames)
+    from raintpu_torch.render.frame import drop_fields, drop_patches  # noqa
+    from raintpu_torch.ops.blur import variable_separable_blur  # noqa
+    from raintpu_torch.ops.composite import composite_drops  # noqa
+    from raintpu_torch.ops.rasterize import (RasterBucket,  # noqa
+                                             rasterize_frame_drops)
 
     W, H, B = 64, 32, 2
     gen = torch.Generator().manual_seed(0)
@@ -81,6 +87,22 @@ _SCRIPT = textwrap.dedent("""
                         torch.as_tensor(db.bin_edges), cfg, generator=gen)
     assert bool(torch.isfinite(out.rainy_image).all())
     assert tuple(out.rain_mask.shape) == (B, H, W)
+    # The golden path: render_frames under "xla", and render_frame.
+    import dataclasses
+    xla = dataclasses.replace(cfg, composite_mode="xla")
+    golden = render_frames(torch.as_tensor(rng.rand(B, H, W, 3), dtype=f32),
+                           torch.as_tensor(rng.rand(B, H, W) * 40 + 3,
+                                           dtype=f32),
+                           drops, texture_bank(db, device="cpu"),
+                           torch.as_tensor(db.bin_edges), xla, generator=gen)
+    one = render_frame(torch.as_tensor(rng.rand(H, W, 3), dtype=f32),
+                       torch.as_tensor(rng.rand(H, W) * 40 + 3, dtype=f32),
+                       drops.map(lambda t: t[0]),
+                       texture_bank(db, device="cpu").raw,
+                       torch.as_tensor(db.bin_edges), cfg, generator=gen)
+    assert tuple(golden.rain_mask.shape) == (B, H, W)
+    assert tuple(one.rainy_image.shape) == (H, W, 3)
+    assert bool(torch.isfinite(one.rainy_image).all())
     loaded = [m for m in sys.modules if blocked(m)]
     assert not loaded, f"the port imported {loaded}"
     print("modules", len(names), "mask", float(out.rain_mask.sum()))

@@ -12,7 +12,10 @@ path's own bar against the XLA path, tests/test_pallas_batched.py), the
 overflow counts are equal. Within the port, sp 2 and sp 1 differ only
 in the order of the planes' float sums: atol 1e-5, alpha mass within a
 relative 1e-5 (tests/test_sharding.py's bars); a one-rank group renders
-exactly what render_frames renders.
+exactly what render_frames renders. The golden path's sharded branch
+(composite_mode "xla", on 2 ranks) holds to the golden path on one
+process within 1e-6 — the same patches, each rank's half of a frame's
+drops scattered on its own and the planes then added.
 """
 
 import dataclasses
@@ -48,6 +51,7 @@ B, H, W, CAP = 4, 32, 64, 16
 ATOL = 2e-4
 LAYOUT_ATOL = 1e-5
 MASS_RTOL = 1e-5
+XLA_SP_ATOL = 1e-6
 TIMEOUT_S = 240
 
 
@@ -187,6 +191,37 @@ def test_sp_layout_invariant(runs):
         np.testing.assert_array_equal(other["overflow"], sp1["overflow"])
         a1, a2 = float(sp1["mask"].sum()), float(other["mask"].sum())
         assert a2 > 0 and abs(a1 - a2) / a1 < MASS_RTOL
+
+
+def test_sharded_xla_branch(runs):
+    """dp 1 x sp 2 through the golden path on 2 gloo ranks (the
+    saturation planes on) against render_frames' golden path in this
+    process within 1e-6, the same on both ranks, and within the fused
+    path's bar of raintpu's sharded render."""
+    bg, depth, fields = runs["inputs"]
+    db = runs["db"]
+    jbank = texture_bank(db)
+    cfg = port_config(H, W, CAP, sat=True, composite_mode="xla")
+    want = tframe.render_frames(
+        torch.as_tensor(bg), torch.as_tensor(depth),
+        interop.drop_batch_from_numpy(fields, device="cpu"),
+        interop.texture_bank_from_numpy(jbank.raw, jbank.ay, jbank.bx,
+                                        device="cpu"),
+        torch.as_tensor(db.bin_edges), cfg,
+        tex_idx=torch.from_numpy(runs["tex_idx"].copy()))
+    got = [_gather(runs["aux"], "xla", [r]) for r in (0, 1)]
+    assert got[0]["mask"].shape == (B, H, W) and got[0]["mask"].sum() > 1.0
+    for k in got[0]:
+        np.testing.assert_array_equal(got[1][k], got[0][k])
+    for k, name in (("mask", "rain_mask"), ("image", "rainy_image"),
+                    ("sat", "saturation_mask")):
+        np.testing.assert_allclose(got[0][k], getattr(want, name).numpy(),
+                                   atol=XLA_SP_ATOL, err_msg=k)
+        np.testing.assert_allclose(got[0][k], runs["want"][name], atol=ATOL,
+                                   err_msg=k)
+    np.testing.assert_array_equal(got[0]["overflow"], want.overflow.numpy())
+    np.testing.assert_array_equal(got[0]["overflow"],
+                                  runs["want"]["overflow"])
 
 
 def test_mesh_rank_layout(runs):

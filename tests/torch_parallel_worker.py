@@ -6,8 +6,9 @@ Imports neither jax nor the JAX package. ``render`` (4 ranks) reads
 tests/test_sharding.py's scene from the .npz IN (:func:`save_scene`)
 and renders it on a dp 2 x sp 2 mesh (with and without the saturation
 planes), on a dp 4 x sp 1 mesh, and on a mesh over the first 2 ranks
-only; ``helpers`` (2 ranks) splits a work list and assembles a global
-tensor; ``card`` (2 ranks on one CUDA card, gloo) renders the scene on
+only; ``helpers`` (2 ranks) splits a work list, assembles a global tensor
+and renders the scene through the golden path (composite_mode "xla",
+the saturation planes on) on a dp 1 x sp 2 mesh; ``card`` (2 ranks on one CUDA card, gloo) renders the scene on
 a dp 1 x sp 2 mesh. Each rank writes what it saw to OUT (an .npz).
 """
 
@@ -28,7 +29,7 @@ from raintpu_torch.render.camera import (CameraSettings,  # noqa: E402
 from raintpu_torch.render.frame import PipelineConfig  # noqa: E402
 
 
-def port_config(h, w, cap, sat=False):
+def port_config(h, w, cap, sat=False, composite_mode="auto"):
     """tests/test_sharding.py's scene configuration, in the port."""
     settings = RenderSettings(camera=CameraSettings(wh=(w, h),
                                                     ccd_wh=(w, h)))
@@ -37,7 +38,8 @@ def port_config(h, w, cap, sat=False):
                           supersample=1)
     return PipelineConfig(settings=settings, image_hw=(h, w),
                           fallrate=200.0, raster=raster, env_downsample=8,
-                          compute_saturation_mask=sat)
+                          compute_saturation_mask=sat,
+                          composite_mode=composite_mode)
 
 
 def save_scene(path, bg, depth, drop_fields, bank, edges, tex_idx, cap):
@@ -107,7 +109,7 @@ def render_job(rank, in_path):
     return got
 
 
-def helpers_job(rank):
+def helpers_job(rank, in_path):
     from torch.distributed.tensor import Replicate, Shard
 
     got = {"bounds_10": np.array(distributed.local_batch_bounds(10))}
@@ -117,6 +119,12 @@ def helpers_job(rank):
         full[rank * 2:(rank + 1) * 2], mesh, [Shard(0), Replicate()])
     got["global_shape"] = np.array(glob.shape)
     got["global_full"] = glob.full_tensor().numpy()
+    bg, depth, drops, bank, edges, tex_idx, cap = scene(in_path)
+    b, h, w = depth.shape
+    got.update(outputs("xla", render_frames_sharded(
+        make_mesh(sp=2, device_type="cpu"), bg, depth, drops, bank, edges,
+        port_config(h, w, cap, sat=True, composite_mode="xla"),
+        tex_idx=tex_idx)))
     return got
 
 
@@ -141,7 +149,7 @@ def main():
         distributed.initialize(addr, world, rank, device="cpu")
     try:
         jobs = {"render": lambda: render_job(rank, in_path),
-                "helpers": lambda: helpers_job(rank),
+                "helpers": lambda: helpers_job(rank, in_path),
                 "card": lambda: card_job(in_path)}
         np.savez(out_path, **jobs[job]())
     finally:
