@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (raintpu_torch) on one NVIDIA GPU.
 
-Drives the port's four paths and checks them. The benchmark workload —
+Drives the port's paths and checks them. The benchmark workload —
 KITTI 1242x375 at 10 mm/hr, batch 48, drops simulated on the card and
 packed to capacity 320, the four-rung hand ladder, cone_downsample 4
 with env_fold, five float32 planes — the online CLI path
@@ -13,7 +13,9 @@ dataset with the saturation mask and the envmap, the nuScenes path
 (``raintpu_torch.parallel``) and the render farm
 (``python -m raintpu_torch.main_threaded``), and the golden render path
 (``composite_mode="xla"``: patches first, then a scatter, the
-independent algorithm the fused kernel is held to). Phases:
+independent algorithm the fused kernel is held to), and the benchmark
+suite's five configurations with a device timeline of their steps.
+Phases:
 
   1. device: a CUDA card is required; prints its name, its
      ``nvidia-smi`` name and power limit, and the TF32 flags (off);
@@ -58,6 +60,23 @@ independent algorithm the fused kernel is held to). Phases:
      the CPU within the render bars; (d) the one-rank nccl sharded
      render's xla branch within 1e-6 of render_frames'; (e) images/s of
      both paths on A in turns and each one's peak memory (information);
+ 10b. suite: the five configurations of ``raintpu_torch.tools.
+     bench_suite`` at their published sizes (the KITTI intensity sweep
+     at 1, 5, 25 and 50 mm/hr, Cityscapes 1024x512 with the envmap
+     saved, the nuScenes 6-camera rig at 100 mm/hr, the online step
+     and the sharded step), each bench function called directly: its
+     JSON line with the card's name and power limit; every render one
+     raster and one blur launch and overflow 0; each scene's
+     truncation 0 and fitted ladder with each rung's kernel body (K1 or
+     K2); the raster kernel against plain on the sweep's and
+     Cityscapes' operands (two launches bit-identical) and the blur on
+     Cityscapes' (48, 512, 1024) fog stack; after [nuscenes rig], the
+     rig's and the sharded step's images/s beside the rates [nuscenes
+     rig] and [sharded] (a) measured in the same run (information);
+ 10c. trace: two steps of Cityscapes and two of the online step under
+     ``utils.profiling.device_trace`` (a Chrome trace under traces/):
+     the top device operations, the device's busy share and the longest
+     idle gaps with the host operations that ran meanwhile;
  11. cli: ``cli.main --online`` renders the dataset on the card;
      outputs, one raster launch per batch carrying every rung, and the
      first two frames against the CPU render of the same drops and
@@ -110,7 +129,8 @@ its previous design's (row chunks, one launch per rung; PERF.md section
 
 Prints a kernels JSON line (launches by path: bench, cli, offline,
 regimes, nuscenes, the one-rank sharded render, the golden render of A
-(raster 0, blur 1), and depth for the blur;
+(raster 0, blur 1), the suite's five configurations, and depth for the
+blur;
 the two-rank and farm children launch in processes of their own and
 are not counted), then ``{"ok": true, "device": ...}`` as the last
 line. Any failing phase raises and the script exits non-zero.
@@ -154,8 +174,10 @@ from raintpu_torch.physics.simulator import (SimConfig, frame_generator,
 from raintpu_torch.render import frame, pipeline
 from raintpu_torch.render.camera import (CameraSettings, RenderSettings,
                                          settings_from_dict)
-from raintpu_torch.tools import (nuscenes_depth, particles_simulation,
-                                 smooth_depth, stage_profile)
+from raintpu_torch.tools import (bench_suite, nuscenes_depth,
+                                 particles_simulation, smooth_depth,
+                                 stage_profile)
+from raintpu_torch.utils import profiling
 
 H, W = 375, 1242
 BATCH = 48
@@ -248,6 +270,22 @@ GOLDEN_ATOL = 2e-4
 GOLDEN_FLIP_TOL = 1e-6
 GOLDEN_MAX_FLIP_FRACTION = 1e-5
 GOLDEN_SHARD_ATOL = 1e-6
+
+# The suite (raintpu_torch.tools.bench_suite) at its published sizes;
+# the configurations whose fitted ladders no other phase runs are held
+# kernel against plain. A render's images/s has spread 660-1600 from
+# call to call on the bench batch (PERF.md section 5): two timings of one
+# render agree when their ratio is within that spread.
+SUITE_HELD = ("kitti_sweep", "cityscapes_envmap")
+# Every configuration is called with the suite's own default of timed
+# steps; each timed loop's scene is rendered SUITE_ITERS + 2 times (the
+# checked render, the warm-up and the timed steps).
+SUITE_ITERS = 6
+CALL_SPREAD = 1600 / 660
+# [trace]: two steps of a configuration under torch.profiler; the Chrome
+# trace goes to traces/ (git-ignored) beside this script.
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "traces")
 
 # Peak rates of one H100 SXM (NVIDIA data sheet) for the bounds.
 PEAK_FP32_FLOPS = 67e12
@@ -1775,7 +1813,8 @@ def nuscenes_rig_phase(dev, smi):
         w["bg"], w["depth"], drops, tex, w["edges"], cfg, generator=gen),
         smi)
     return dict(max_abs_err=max(worst, every), multi_err=worst_multi,
-                ms=ms, plain_ms=plain, bound_ms=bnd, blur=blur)
+                ms=ms, plain_ms=plain, bound_ms=bnd, blur=blur,
+                full_ms=rec["ms_per_step"]["full"])
 
 
 def depth_blur_phase(root, names, dev, smi):
@@ -1880,7 +1919,8 @@ def sharded_phase(cfg, gen, drops, bg, depth, tex, edges, tex_idx, smi):
         raise AssertionError(f"the one-rank sharded render launched the "
                              f"raster {launches} and the blur "
                              f"{blur_launches} times, not once each")
-    return dict(launches=launches, blur_launches=blur_launches)
+    return dict(launches=launches, blur_launches=blur_launches,
+                rates=[r for n, r in rates if n == "sharded"])
 
 
 def _field_outputs(out):
@@ -2134,6 +2174,181 @@ def farm_phase(cli_outputs, dev, smi):
             raise AssertionError("the farm's rerun did not skip everything")
 
 
+def _kind_ladder(raster):
+    """The ladder's rungs (ph, pw, radius, capacity, ranks) with the
+    kernel body the JAX package's plan gives each: K1 single-tile, K2
+    multi-tile windows."""
+    return [(b.ph, b.pw, b.radius, b.capacity, b.ranks,
+             "K2" if tpu_tiles(b.ph, b.pw) > 1 else "K1")
+            for b in raster.buckets]
+
+
+def suite_phase(dev, smi):
+    """The suite's five configurations at their published sizes, called
+    one by one (not through bench_suite.main, whose catch would hide a
+    failure): each JSON line; every render's raster and blur launches
+    (one each), its overflow (0) and each scene's truncation (0) and
+    fitted ladder. Then the raster kernel against plain on the sweep's
+    and Cityscapes' operands (all rungs in one launch; two launches
+    bit-identical) and the blur against plain on Cityscapes' fog stack.
+    Returns the launches by kind, the rates, each configuration's steps
+    (for [trace]) and the kernel records.
+
+    The scenes, steps and step times come from each configuration's
+    ``_detail``. Every render's overflow is read where all of them pass,
+    ``frame.fused_field_planes`` (the online step simulates new drops
+    each step, which only its renders see); the renders it counts are
+    held to the number the configuration's timed loops make."""
+    renders = []
+    real_planes = frame.fused_field_planes
+
+    def count_render(*args, **kw):
+        out = real_planes(*args, **kw)
+        renders.append(out[3])           # the per-rung overflow counts
+        return out
+
+    frame.fused_field_planes = count_render
+    recs, held, last_step = {}, {}, {}
+    try:
+        reset_counts()
+        for name, bench in bench_suite.CONFIGS.items():
+            before = len(renders)
+            launched = (fused_raster.fused_raster_composite.launches,
+                        blur_kernel.separable_blur.launches)
+            t0 = time.perf_counter()
+            rec = bench(device=dev, iters=SUITE_ITERS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs = rec.pop("_detail")
+            rec["device"] = smi
+            print(json.dumps(rec), flush=True)
+            n = len(renders) - before
+            raster = fused_raster.fused_raster_composite.launches - launched[0]
+            blur = blur_kernel.separable_blur.launches - launched[1]
+            overflow = int(sum(int(o.sum()) for o in renders[before:]))
+            phase(f"[suite] {name}: {n} renders, raster launches {raster}, "
+                  f"blur launches {blur}, overflow {overflow} over every "
+                  f"render; {wall:.2f} s with its set-up")
+            for run in runs:
+                sc, sec = run.scene, run.seconds
+                counts = sc.drops.count().float()
+                phase(f"[suite] {name} @{sc.cfg.fallrate:g} mm/hr "
+                      f"{sc.cfg.image_hw[1]}x{sc.cfg.image_hw[0]} x "
+                      f"{counts.numel()}: drops per frame mean "
+                      f"{counts.mean().item():.1f} max "
+                      f"{counts.max().item():.0f} (render capacity "
+                      f"{sc.drops.capacity}, simulation capacity "
+                      f"{sc.sim_cfg.capacity}), truncated {sc.truncated}; "
+                      f"fitted ladder {_kind_ladder(sc.cfg.raster)}; step "
+                      f"{sec * 1e3:.3f} ms, {counts.numel() / sec:.2f} "
+                      "images/s")
+                if sc.truncated:
+                    raise AssertionError(f"suite {name}: the simulation "
+                                         f"truncated {sc.truncated} drops")
+            want = len(runs) * (SUITE_ITERS + 2)
+            if not raster == blur == n == want or overflow:
+                raise AssertionError(
+                    f"suite {name}: {n} renders seen of {want} made, the "
+                    f"raster launched {raster} and the blur {blur} times, "
+                    f"overflow {overflow}: one launch each a render and no "
+                    "overflow expected")
+            recs[name] = rec
+            last_step[name] = (runs[-1].step, runs[-1].data)
+            if name in SUITE_HELD:
+                held[name] = [run.scene for run in runs]
+        torch.cuda.synchronize()
+        kinds = launch_kinds(fused_raster.fused_raster_composite.carried)
+        blur_launches = blur_kernel.separable_blur.launches
+    finally:
+        frame.fused_field_planes = real_planes
+
+    worst = 0.0
+    for name, group in held.items():
+        for sc in group:
+            cfg = sc.cfg
+            gen = frame_generator(bench_suite.DRAW_SEED, 0, dev)
+            _, env, _ = frame.frame_background(sc.bg, sc.depth, cfg)
+            params, _ = frame.drop_fused_params(env, sc.drops, sc.bank,
+                                                sc.edges, cfg, generator=gen)
+            rungs = frame.kernel_rungs(params, cfg)
+            tex_hw = tuple(sc.bank.raw.shape[1:])
+            label = f"{name} @{cfg.fallrate:g} mm/hr, all rungs"
+            worst = max(worst, against_plain("suite", label, rungs,
+                                             cfg.image_hw, tex_hw, N_PLANES))
+            first = fused_raster.fused_raster_composite(rungs, cfg.image_hw,
+                                                        tex_hw)
+            second = fused_raster.fused_raster_composite(rungs, cfg.image_hw,
+                                                         tex_hw)
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                raise AssertionError(f"suite {label}: two launches differ")
+            ms = event_ms(lambda: fused_raster.fused_raster_composite(
+                rungs, cfg.image_hw, tex_hw), 10)
+            plain = event_ms(lambda: fused_raster.fused_raster_plain(
+                rungs, cfg.image_hw, tex_hw), 1)
+            bnd, by, px = raster_bound(rungs, cfg.image_hw, N_PLANES)
+            phase(f"[suite] {label}: two launches bit-identical; kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms "
+                  f"({by}; {px} window px), {ms / bnd:.2f}x the bound, on "
+                  f"{smi}")
+    city = held["cityscapes_envmap"][0]
+    stacks = []
+    real_blur = fog.separable_blur
+
+    def record_blur(x, taps):
+        stacks.append(x)
+        return real_blur(x, taps)
+
+    fog.separable_blur = record_blur
+    try:
+        frame.batched_fog(city.bg, city.depth, city.cfg)
+    finally:
+        fog.separable_blur = real_blur
+    taps = cv2_gaussian_kernel(fog.FOG_BLUR_KSIZE, fog.FOG_BLUR_SIGMA)
+    blur = blur_case("suite", "cityscapes fog", stacks[0], taps, smi)
+    return dict(kinds=kinds, blur_launches=blur_launches, recs=recs,
+                steps=last_step,
+                max_abs_err=worst, blur=blur)
+
+
+def trace_phase(steps, smi):
+    """Two steps of Cityscapes (and, to see what the online step's
+    simulation and compaction cost the host, two of the online step)
+    under ``profiling.device_trace``: the top device operations by total
+    time, the device's busy share over the traced window, and the longest
+    idle gaps with the host operations running meanwhile."""
+    for name in ("cityscapes_envmap", "online"):
+        step, data = steps[name]
+        step(0, *data)
+        torch.cuda.synchronize()
+        logdir = os.path.join(TRACE_DIR, name)
+        with profiling.device_trace(logdir) as prof:
+            t0 = time.perf_counter()
+            for i in (1, 2):
+                step(i, *data)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        s = profiling.trace_summary(prof)
+        busy = (f"device busy {s['busy_ms']:.3f} ms, busy share "
+                f"{s['busy_share']:.4f}" if s["device"] == "cuda" else
+                "device busy not measured (no device time in the trace; "
+                "the lists below are host operations)")
+        phase(f"[trace] {name}, 2 steps: wall {wall:.3f} ms (profiled); "
+              f"traced window {s['window_ms']:.3f} ms, {busy}; "
+              f"{s['n_ops']} device ops, {s['n_gaps']} idle gaps between "
+              f"them; host waits for the device {s['syncs']} (one "
+              f"cudaDeviceSynchronize is the phase's own); trace "
+              f"{os.path.relpath(logdir)}/{profiling.TRACE_FILE}, on {smi}")
+        for op in s["ops"]:
+            phase(f"[trace] {name} top op {op['ms']:.3f} ms x "
+                  f"{op['count']}: {op['name'][:110]}")
+        for g in s["gaps"]:
+            host = "; ".join(f"{n[:60]} {ms:.3f} ms" for n, ms in g["host"])
+            phase(f"[trace] {name} idle gap {g['ms']:.3f} ms at "
+                  f"{g['start_ms']:.3f} ms, {g['host_ops']} host ops: "
+                  f"{host or 'no host op'}")
+
+
 def timed(fn, *args):
     """fn(*args), its wall time printed after it."""
     t0 = time.perf_counter()
@@ -2162,6 +2377,8 @@ def main() -> None:
     timed(determinism_phase, rungs, k2["rungs"],
           tuple(data[5].raw.shape[1:]), k2["tex_hw"])
     golden = timed(golden_phase, data, tex_idx, k2.pop("inputs"), smi)
+    suite = timed(suite_phase, dev, smi)
+    timed(trace_phase, suite["steps"], smi)
     cli_launches, cli_call, cli_outputs = timed(cli_phase, dev, smi)
     timed(farm_phase, cli_outputs, dev, smi)
     timed(cli_stages_phase, cli_call, smi)
@@ -2170,20 +2387,34 @@ def main() -> None:
     timed(export_phase, dev)
     nusc, nusc_raster, depth = nuscenes_phases(dev, smi)
     rig = timed(nuscenes_rig_phase, dev, smi)
+    for name, other, rate in (
+            ("nuscenes_6cam", "[nuscenes rig] full",
+             NUSC_BATCH / (rig["full_ms"] / 1e3)),
+            ("sharded", "[sharded] (a) sharded", min(sharded["rates"])),
+            ("sharded", "[sharded] (a) sharded", max(sharded["rates"]))):
+        value = suite["recs"][name]["value"]
+        ratio = max(value / rate, rate / value)
+        phase(f"[suite] {name} {value:.2f} images/s beside {other} "
+              f"{rate:.2f} images/s in this run: ratio {ratio:.3f}, "
+              f"{'within' if ratio <= CALL_SPREAD else 'outside'} the "
+              f"call-to-call spread ({CALL_SPREAD:.3f}); on {smi}")
     phase(f"[time] all phases: {time.perf_counter() - t_start:.2f} s")
     raster = dict(name="fused_raster", route="cuda", source=KERNEL_SOURCE,
                   plain_ms=k1["plain_ms"], bound_ms=k1_bound,
                   bound_by=k1_by, library_ms=None)
 
-    def by_path(kind, bench, one_rank, golden_launches, **more):
+    def by_path(kind, bench, one_rank, golden_launches, suite_launches,
+                **more):
         """Launches of the bench render, the online CLI run, the offline
         CLI run, the regimes' renders, the nuScenes CLI run, the
-        one-rank sharded render and the golden render of A that carried
-        ``kind`` (and ``more``), and their sum."""
+        one-rank sharded render, the golden render of A and the suite's
+        five configurations that carried ``kind`` (and ``more``), and
+        their sum."""
         paths = {"bench": bench, "cli": cli_launches[kind],
                  "offline": offline_launches[kind],
                  "regimes": regimes[kind], "nuscenes": nusc[kind],
-                 "sharded": one_rank, "golden": golden_launches, **more}
+                 "sharded": one_rank, "golden": golden_launches,
+                 "suite": suite_launches, **more}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     # K1 and K3 are one launch of the same kernel on the bench path (K1's
@@ -2192,13 +2423,14 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {**raster, "replaces": KERNEL_REPLACES,
          **by_path("k1", launches, sharded["launches"],
-                   golden["launches"][0]),
+                   golden["launches"][0], suite["kinds"][0]),
          "max_abs_err": max(max_err, regimes["max_abs_err"],
                             rig["max_abs_err"], nusc_raster["max_abs_err"],
-                            pair["max_abs_err"]),
+                            pair["max_abs_err"], suite["max_abs_err"]),
          "ms": k1["ms"]},
         {**raster, "name": "fused_raster_multitile",
-         "replaces": K2_REPLACES, **by_path("k2", 0, 0, 0),
+         "replaces": K2_REPLACES,
+         **by_path("k2", 0, 0, 0, suite["kinds"][1]),
          "max_abs_err": max(k2["max_abs_err"], regimes["multi_err"],
                             rig["multi_err"], nusc_raster["multi_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -2206,18 +2438,21 @@ def main() -> None:
         {**raster, "name": "fused_raster_resident",
          "replaces": K3_REPLACES,
          **by_path("k3", launches, sharded["launches"],
-                   golden["launches"][0]),
+                   golden["launches"][0], suite["kinds"][2]),
          "max_abs_err": max(all_err, k2["all_rungs_err"],
                             regimes["max_abs_err"], rig["max_abs_err"],
-                            nusc_raster["max_abs_err"], pair["max_abs_err"]),
+                            nusc_raster["max_abs_err"], pair["max_abs_err"],
+                            suite["max_abs_err"]),
          "ms": k1["ms"]},
         {"name": "separable_blur", "route": "cuda", "source": BLUR_SOURCE,
          "replaces": BLUR_REPLACES,
          **by_path("k4", blur_launches, sharded["blur_launches"],
-                   golden["launches"][1], depth=depth["launches"]),
+                   golden["launches"][1], suite["blur_launches"],
+                   depth=depth["launches"]),
          **blur, "max_abs_err": max(blur["max_abs_err"],
                                     rig["blur"]["max_abs_err"],
-                                    depth["max_abs_err"])}]}))
+                                    depth["max_abs_err"],
+                                    suite["blur"]["max_abs_err"])}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -47,6 +47,8 @@ _SCRIPT = textwrap.dedent("""
                  "raintpu_torch.tools.smooth_depth",
                  "raintpu_torch.tools.check_difference",
                  "raintpu_torch.tools.stage_profile",
+                 "raintpu_torch.tools.bench_suite",
+                 "raintpu_torch.utils.profiling",
                  "raintpu_torch.parallel.mesh",
                  "raintpu_torch.parallel.distributed",
                  "raintpu_torch.main_threaded"):
