@@ -13,8 +13,9 @@ dataset with the saturation mask and the envmap, the nuScenes path
 (``raintpu_torch.parallel``) and the render farm
 (``python -m raintpu_torch.main_threaded``), and the golden render path
 (``composite_mode="xla"``: patches first, then a scatter, the
-independent algorithm the fused kernel is held to), and the benchmark
-suite's five configurations with a device timeline of their steps.
+independent algorithm the fused kernel is held to), the benchmark
+suite's five configurations with a device timeline of their steps, and
+wide frames (2048x1024 and 3840x2160) with their envmaps.
 Phases:
 
   1. device: a CUDA card is required; prints its name, its
@@ -119,7 +120,23 @@ Phases:
      times, then on that batch the raster kernel against its plain
      version (rung by rung and all rungs in one launch), two launches
      bit-identical, raster ms against its bound, the fog's blur at
-     (24, 900, 1600) and the device's busy share.
+     (24, 900, 1600) and the device's busy share;
+ 21. wide: frames whose full-resolution envmap has an axis of 3073 px
+     or more, where the plain blur (the envmap's feather) cuts the axis
+     into block slabs, through ``cli.main --online`` at 25 mm/hr with
+     the default ladder, the saturation mask and the envmap saved:
+     Cityscapes' full 2048x1024 (8 frames, batches of 4, envmaps
+     (1024, 3149)) and UHD 3840x2160 (2 frames, one batch, envmaps
+     (2160, 5905)); nothing truncated or overflowed, one raster and one
+     blur launch per batch, every envmap on disk of its shape and
+     finite; 2048x1024's frame 0 against the CPU render; on the UHD
+     batch the raster kernel and K4 (fog stack (8, 2160, 3840)) within
+     5e-7 of their plain versions, two raster launches bit-identical,
+     frame 0's envmap within 1e-5 of the CPU's, and the envmap made
+     again with synchronizing operations made errors (so no copy to
+     the host); raster ms and
+     bound, K4 ms, bound and conv2d at both fog stacks, the feather's
+     ms, each job's images/s.
 
 Each kernel time is printed beside the one recorded for the kernel's
 first design (one block per drop for the raster kernel, 32x128 tiles
@@ -129,8 +146,8 @@ its previous design's (row chunks, one launch per rung; PERF.md section
 
 Prints a kernels JSON line (launches by path: bench, cli, offline,
 regimes, nuscenes, the one-rank sharded render, the golden render of A
-(raster 0, blur 1), the suite's five configurations, and depth for the
-blur;
+(raster 0, blur 1), the suite's five configurations, the two wide CLI
+runs, and depth for the blur;
 the two-rank and farm children launch in processes of their own and
 are not counted), then ``{"ok": true, "device": ...}`` as the last
 line. Any failing phase raises and the script exits non-zero.
@@ -159,8 +176,10 @@ from raintpu_torch.data import db
 from raintpu_torch.data.nuscenes_data import NuScenesCameraData
 from raintpu_torch.data.textures import (procedural_streak_database,
                                          texture_bank)
-from raintpu_torch.ops import blur_kernel, fog, fused_raster, rasterize
-from raintpu_torch.ops.blur import cv2_gaussian_kernel, separable_blur_hw
+from raintpu_torch.ops import (blur_kernel, envmap, fog, fused_raster,
+                               rasterize)
+from raintpu_torch.ops.blur import (cv2_gaussian_kernel, separable_blur,
+                                    separable_blur_hw)
 from raintpu_torch.ops.fused_raster import (ALPHA_CUTOFF, N_PLANES,
                                             N_PLANES_SAT)
 from raintpu_torch.ops.rasterize import RasterConfig, select_textures
@@ -209,7 +228,7 @@ K2_REPLACES = "raintpu/ops/pallas/fused_kernel.py:274"
 K3_REPLACES = "raintpu/ops/pallas/fused_kernel.py:1165"
 BLUR_SOURCE = "raintpu_torch/csrc/separable_blur.cu"
 BLUR_REPLACES = "raintpu/ops/pallas/blur_kernel.py:282"
-# The blur kernel against its plain version (dense band matmuls): the
+# The blur kernel against its plain version (band matmuls): the
 # same products, summed in another order.
 BLUR_ATOL = 1e-5
 
@@ -270,6 +289,19 @@ GOLDEN_ATOL = 2e-4
 GOLDEN_FLIP_TOL = 1e-6
 GOLDEN_MAX_FLIP_FRACTION = 1e-5
 GOLDEN_SHARD_ATOL = 1e-6
+
+# Wide frames: customdb frames whose full-resolution envmap has an axis
+# of 3073 px or more, where the plain blur (the envmap's feather, and
+# the fog's on the CPU) cuts the axis into block slabs: Cityscapes' full
+# 2048x1024 frame and UHD dash-cam footage at 3840x2160, with customdb's
+# camera (focal 6 mm). (name, (H, W), envmap width, frames, batch).
+WIDE_CONFIGS = (("wide-2048x1024", (1024, 2048), 3149, 8, 4),
+                ("wide-3840x2160", (2160, 3840), 5905, 2, 2))
+WIDE_FALLRATE = 25
+# The raster kernel and K4 against their plain versions on the UHD batch
+# and fog stack, and the card's envmap against the CPU's.
+WIDE_KERNEL_ATOL = 5e-7
+WIDE_ENV_ATOL = 1e-5
 
 # The suite (raintpu_torch.tools.bench_suite) at its published sizes;
 # the configurations whose fitted ladders no other phase runs are held
@@ -658,7 +690,7 @@ def library_blur(x, taps_t, r):
 
 
 def blur_case(tag, name, x, taps, smi):
-    """The stencil blur kernel against its plain version (dense band
+    """The stencil blur kernel against its plain version (band
     matmuls) on ``x`` with ``taps``: kernel, plain, conv2d and bound ms,
     and, for the shapes of FIRST_DESIGN_MS, the kernel under other tile
     shapes."""
@@ -999,19 +1031,21 @@ def golden_phase(data, tex_idx, b_inputs, smi):
     return dict(launches=launches)
 
 
-def _write_dataset(root, n_frames=CLI_FRAMES):
-    """A customdb dataset of n_frames KITTI-size frames: .npy RGB
-    (uint8) and depth in metres, sequence 'drive'; no particle file."""
+def _write_dataset(root, n_frames=CLI_FRAMES, hw=(H, W)):
+    """A customdb dataset of n_frames frames of ``hw`` (KITTI size by
+    default): .npy RGB (uint8) and depth in metres, sequence 'drive'; no
+    particle file."""
+    h, w = hw
     rng = np.random.RandomState(5)
     seq = os.path.join(root, "source", "customdb", "drive")
     for sub in ("rgb", "depth"):
         os.makedirs(os.path.join(seq, sub))
-    yy = np.linspace(0.0, 1.0, H, dtype=np.float32)[:, None]
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
     for i in range(n_frames):
-        img = np.clip(rng.rand(H, W, 3) * 0.5 + 0.4 * yy[..., None], 0, 1)
+        img = np.clip(rng.rand(h, w, 3) * 0.5 + 0.4 * yy[..., None], 0, 1)
         np.save(os.path.join(seq, "rgb", f"{i:06d}.npy"),
                 (img * 255).astype(np.uint8))
-        depth = (3.0 + 80.0 * (1.0 - yy) + rng.rand(H, W) * 2.0)
+        depth = (3.0 + 80.0 * (1.0 - yy) + rng.rand(h, w) * 2.0)
         np.save(os.path.join(seq, "depth", f"{i:06d}.npy"),
                 depth.astype(np.float32))
 
@@ -1865,6 +1899,180 @@ def nuscenes_phases(dev, smi):
     return kinds, raster, depth
 
 
+def wide_run(tmp, name, hw, env_w, n_frames, batch, dev):
+    """One wide configuration through ``cli.main --online`` on the card,
+    the saturation mask and the envmap saved, the simulation capacity
+    sized to the whole population: rc 0, nothing truncated or
+    overflowed, one raster and one blur launch per batch, every frame's
+    outputs on disk, each envmap (H, env_w, 3) and finite. Returns the
+    launch kinds, the first batch's call and the job's stats."""
+    root = os.path.join(tmp, name)
+    _write_dataset(root, n_frames, hw)
+    settings = settings_from_dict(db.settings("customdb"))
+    capacity = stage_profile.full_population_capacity(settings,
+                                                      WIDE_FALLRATE)
+    out_root = os.path.join(root, "output")
+    argv = ["--dataset", "customdb", "-k", os.path.join(root, "source"),
+            "-d", os.path.join(root, "source"), "--output", out_root,
+            "--online", "--intensity", str(WIDE_FALLRATE),
+            "--batch_size", str(batch), "--save_format", "npy",
+            "--save_saturation", "--save_envmap",
+            "--drop_capacity", str(capacity), "--frame_end", str(n_frames),
+            "--noverbose", "--device", str(dev)]
+    rc, stats, call, launches, carried, blur_launches, wall = run_cli(argv)
+    phase(f"[wide] {name}: rc {rc}; --drop_capacity {capacity}; stats "
+          f"{stats}; wall {wall:.2f} s; raster launches {launches}, by the "
+          f"windows each carried {carried}; blur launches {blur_launches}")
+    kinds = check_cli_run(name, rc, stats, launches, carried, blur_launches,
+                          n_frames, batch)
+    if stats.get("truncated_drops") != 0:
+        raise AssertionError(f"{name}: the simulation capacity truncated "
+                             "the population")
+    check_outputs(name, out_root, WIDE_FALLRATE, n_frames)
+    env_dir = os.path.join(out_root, "customdb", "drive", "envmap")
+    for f in sorted(os.listdir(env_dir)):
+        env = np.load(os.path.join(env_dir, f))
+        if env.shape != (hw[0], env_w, 3) or not np.isfinite(env).all():
+            raise AssertionError(f"{name}: envmap {f} of shape {env.shape}, "
+                                 f"want {(hw[0], env_w, 3)}, finite")
+    phase(f"[wide] {name}: {n_frames} envmaps of {(hw[0], env_w, 3)} on "
+          "disk, finite")
+    return kinds, call, stats
+
+
+def wide_envmap(name, call, smi):
+    """The card's full-resolution envmap of frame 0 (the render's own
+    output) against the CPU's ``generate_envmap`` of the same fogged
+    frame; the envmap made again on the card with every synchronizing
+    operation (a copy to the host among them) made an error, the result
+    on the card; the feather's time (information: the slab blur beside K4 at 15 taps on
+    the same planes, a move that is not made)."""
+    (bg, depth, _, _, _, cfg), _, out = call
+    geom = envmap.envmap_geometry(*cfg.image_hw, cfg.settings.camera.focal)
+    fogged = frame.batched_fog(bg, depth, cfg)
+    want = envmap.generate_envmap(fogged[:1].cpu(), geom)[0]
+    err = (out.envmap[0].cpu() - want).abs().max().item()
+    phase(f"[wide] {name}: envmap {tuple(out.envmap.shape)} on "
+          f"{out.envmap.device}; frame 0 card vs CPU max {err:.3g}")
+    if not (out.envmap.device == bg.device and err <= WIDE_ENV_ATOL):
+        raise AssertionError(f"{name}: the card's envmap is off the CPU's "
+                             f"by {err} > {WIDE_ENV_ATOL}, or not on the "
+                             "card")
+    # Any copy to the host synchronizes with the card: in the "error"
+    # sync-debug mode such an operation raises.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = envmap.generate_envmap(fogged, geom)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    phase(f"[wide] {name}: generate_envmap again with synchronizing "
+          f"operations made errors: none raised, the result on "
+          f"{again.device}")
+    if again.device != bg.device:
+        raise AssertionError(f"{name}: the envmap left the card")
+    src_r, src_c, _ = envmap._source_indices(geom, fogged.device,
+                                             fogged.dtype)
+    raw = fogged[..., src_r, src_c, :]
+    taps = cv2_gaussian_kernel(envmap.FEATHER_KSIZE, envmap.FEATHER_SIGMA)
+    planes = torch.movedim(raw, -1, -3).reshape(-1, *raw.shape[1:3])
+    slab = event_ms(lambda: separable_blur(raw, taps), 5)
+    whole = event_ms(lambda: envmap.generate_envmap(fogged, geom), 5)
+    k4 = event_ms(lambda: blur_kernel.separable_blur(planes, taps), 20)
+    phase(f"[wide] {name}: feather of {tuple(raw.shape)} (plain, block "
+          f"slabs on W): {slab:.4f} ms; generate_envmap {whole:.4f} ms; K4 "
+          f"at 15 taps on the same {tuple(planes.shape)} planes {k4:.4f} ms "
+          f"(information); on {smi}")
+    return err
+
+
+def wide_config(tmp, name, hw, env_w, n_frames, batch, dev, smi):
+    """One wide configuration: its CLI run (``wide_run``), then on the
+    first batch's operands the raster kernel's ms against its bound, K4
+    against its plain version at the batch's fog stack (4 * batch, H, W)
+    with its bound and conv2d, the batch's render_frames ms and the
+    job's images/s."""
+    kinds, call, stats = wide_run(tmp, name, hw, env_w, n_frames, batch,
+                                  dev)
+    (bg, depth, drops, tex, edges, cfg), kw, _ = call
+    _, env, _ = frame.frame_background(bg, depth, cfg)
+    prep, _ = frame.drop_fused_params(env, drops, tex, edges, cfg,
+                                      tex_idx=kw["tex_idx"])
+    rungs = frame.kernel_rungs(prep, cfg)
+    tex_hw = tuple(tex.raw.shape[1:])
+    n_planes = N_PLANES_SAT if cfg.compute_saturation_mask else N_PLANES
+    for label, sub in [("all rungs in one launch", rungs)] + [
+            (f"the multi-tile rung {r.patch_hw} alone (K2)", [r])
+            for r in rungs
+            if tpu_tiles(*r.patch_hw) > 1 and int(r.n_valid.sum())]:
+        ms = event_ms(lambda: fused_raster.fused_raster_composite(
+            sub, hw, tex_hw, n_planes), 10)
+        plain = event_ms(lambda: fused_raster.fused_raster_plain(
+            sub, hw, tex_hw, n_planes), 1)
+        bnd, by, px = raster_bound(sub, hw, n_planes)
+        phase(f"[wide] {name}: raster, {label}, {n_planes} planes: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
+              f"{px} window px), {ms / bnd:.2f}x the bound; drops "
+              f"{[int(r.n_valid.sum()) for r in sub]}; on {smi}")
+    x = torch.rand((4 * batch,) + hw, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(10))
+    blur = blur_case("wide", f"{name} fog", x, cv2_gaussian_kernel(
+        fog.FOG_BLUR_KSIZE, fog.FOG_BLUR_SIGMA), smi)
+    render_ms = median_ms(lambda: frame.render_frames(
+        bg, depth, drops, tex, edges, cfg, **kw))
+    phase(f"[wide] {name}: render_frames of the first batch ({batch} "
+          f"frames) {render_ms:.3f} ms; img_per_s {stats.get('img_per_s')} "
+          f"(the job's own wall clock, disk to disk), on {smi}")
+    return dict(kinds=kinds, call=call, rungs=rungs, tex_hw=tex_hw,
+                n_planes=n_planes, blur=blur)
+
+
+def wide_phase(dev, smi):
+    """Wide frames through the online CLI on the card (WIDE_CONFIGS),
+    each timed by ``wide_config``. 2048x1024: frame 0 against the CPU
+    render of the same drops and texture picks, at [cli]'s bars.
+    3840x2160: the raster kernel against its plain version on the batch
+    (all rungs in one launch; two launches bit-identical) and K4 at the
+    fog stack (8, 2160, 3840), both within WIDE_KERNEL_ATOL, and the
+    envmap card vs CPU (``wide_envmap``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cityscapes, uhd = (wide_config(tmp, *c, dev, smi)
+                           for c in WIDE_CONFIGS)
+    name, hw = WIDE_CONFIGS[0][:2]
+    args, kw, out = cityscapes["call"]
+    t0 = time.perf_counter()
+    ref = cpu_render(args[:5], args[5], kw, frames=slice(0, 1))
+    phase(f"[wide] {name}: the CPU render of frame 0 took "
+          f"{time.perf_counter() - t0:.2f} s")
+    compare_with_cpu(name, out, ref, ("rain_mask", "rainy_image",
+                                      "saturation_mask", "envmap"),
+                     frames=slice(0, 1))
+
+    name, hw = WIDE_CONFIGS[1][:2]
+    rungs, tex_hw, n_planes = uhd["rungs"], uhd["tex_hw"], uhd["n_planes"]
+    err = against_plain("wide", f"{name}, all rungs", rungs, hw, tex_hw,
+                        n_planes)
+    first = fused_raster.fused_raster_composite(rungs, hw, tex_hw, n_planes)
+    second = fused_raster.fused_raster_composite(rungs, hw, tex_hw,
+                                                 n_planes)
+    torch.cuda.synchronize()
+    blur_err = uhd["blur"]["max_abs_err"]
+    phase(f"[wide] {name}: two raster launches bit-identical "
+          f"{torch.equal(first, second)}; raster vs plain {err:.3g}, K4 vs "
+          f"plain {blur_err:.3g} (bar {WIDE_KERNEL_ATOL:g})")
+    if not (torch.equal(first, second) and err <= WIDE_KERNEL_ATOL
+            and blur_err <= WIDE_KERNEL_ATOL):
+        raise AssertionError(f"{name}: a kernel is off its plain version, "
+                             "or two raster launches differ")
+    env_err = wide_envmap(name, uhd["call"], smi)
+    multi = any(tpu_tiles(*r.patch_hw) > 1 and int(r.n_valid.sum())
+                for r in rungs)
+    kinds = {k: cityscapes["kinds"][k] + uhd["kinds"][k]
+             for k in cityscapes["kinds"]}
+    return dict(kinds=kinds, max_abs_err=err, multi_err=err if multi else 0.0,
+                env_err=env_err,
+                blur_err=max(cityscapes["blur"]["max_abs_err"], blur_err))
+
+
 def free_address():
     """localhost:<a free port>, for a process group's rendezvous."""
     with socket.socket() as s:
@@ -2387,6 +2595,7 @@ def main() -> None:
     timed(export_phase, dev)
     nusc, nusc_raster, depth = nuscenes_phases(dev, smi)
     rig = timed(nuscenes_rig_phase, dev, smi)
+    wide = timed(wide_phase, dev, smi)
     for name, other, rate in (
             ("nuscenes_6cam", "[nuscenes rig] full",
              NUSC_BATCH / (rig["full_ms"] / 1e3)),
@@ -2407,14 +2616,15 @@ def main() -> None:
                 **more):
         """Launches of the bench render, the online CLI run, the offline
         CLI run, the regimes' renders, the nuScenes CLI run, the
-        one-rank sharded render, the golden render of A and the suite's
-        five configurations that carried ``kind`` (and ``more``), and
-        their sum."""
+        one-rank sharded render, the golden render of A, the suite's
+        five configurations and the two wide CLI runs that carried
+        ``kind`` (and ``more``), and their sum."""
         paths = {"bench": bench, "cli": cli_launches[kind],
                  "offline": offline_launches[kind],
                  "regimes": regimes[kind], "nuscenes": nusc[kind],
                  "sharded": one_rank, "golden": golden_launches,
-                 "suite": suite_launches, **more}
+                 "suite": suite_launches, "wide": wide["kinds"][kind],
+                 **more}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     # K1 and K3 are one launch of the same kernel on the bench path (K1's
@@ -2426,13 +2636,15 @@ def main() -> None:
                    golden["launches"][0], suite["kinds"][0]),
          "max_abs_err": max(max_err, regimes["max_abs_err"],
                             rig["max_abs_err"], nusc_raster["max_abs_err"],
-                            pair["max_abs_err"], suite["max_abs_err"]),
+                            pair["max_abs_err"], suite["max_abs_err"],
+                            wide["max_abs_err"]),
          "ms": k1["ms"]},
         {**raster, "name": "fused_raster_multitile",
          "replaces": K2_REPLACES,
          **by_path("k2", 0, 0, 0, suite["kinds"][1]),
          "max_abs_err": max(k2["max_abs_err"], regimes["multi_err"],
-                            rig["multi_err"], nusc_raster["multi_err"]),
+                            rig["multi_err"], nusc_raster["multi_err"],
+                            wide["multi_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"]},
         {**raster, "name": "fused_raster_resident",
@@ -2442,7 +2654,7 @@ def main() -> None:
          "max_abs_err": max(all_err, k2["all_rungs_err"],
                             regimes["max_abs_err"], rig["max_abs_err"],
                             nusc_raster["max_abs_err"], pair["max_abs_err"],
-                            suite["max_abs_err"]),
+                            suite["max_abs_err"], wide["max_abs_err"]),
          "ms": k1["ms"]},
         {"name": "separable_blur", "route": "cuda", "source": BLUR_SOURCE,
          "replaces": BLUR_REPLACES,
@@ -2452,7 +2664,8 @@ def main() -> None:
          **blur, "max_abs_err": max(blur["max_abs_err"],
                                     rig["blur"]["max_abs_err"],
                                     depth["max_abs_err"],
-                                    suite["blur"]["max_abs_err"])}]}))
+                                    suite["blur"]["max_abs_err"],
+                                    wide["blur_err"])}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

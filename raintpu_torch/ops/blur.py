@@ -1,17 +1,16 @@
 """Fixed-kernel separable Gaussian blur with REFLECT_101 borders.
 
-Counterpart of the dense path of ``raintpu.ops.blur``: the
+Counterpart of the fixed-kernel path of ``raintpu.ops.blur``: the
 ``cv2.GaussianBlur(img, (K, K), sigma)`` semantics of the reference's
 fog pass and envmap feather — a truncated kernel of fixed width K and
-REFLECT_101 borders — as one dense (n, n) band-matrix product per axis.
-The products are plain ``torch.matmul`` (the JAX package leaves them
-to XLA, outside any Pallas kernel); callers keep TF32 off so they are
-exact float32.
-
-Axes of ``_BLOCKED_BLUR_MIN_DIM`` or more, where the JAX package
-switches to block slabs, raise NotImplementedError here: no axis of the
-KITTI paths reaches it, and on a CUDA card the fog's stencil kernel
-(:mod:`raintpu_torch.ops.blur_kernel`) takes any axis length.
+REFLECT_101 borders — one axis at a time, H then W, with the JAX
+package's dispatch: an axis shorter than ``_BLOCKED_BLUR_MIN_DIM``, or
+one the kernel's radius reaches past (REFLECT_101 folds more than
+once), is one dense (n, n) band-matrix product; a longer one is cut
+into overlapping block slabs, all multiplied by one (depth, block)
+band. The products are plain ``torch.matmul`` (the JAX package leaves
+them to XLA, outside any Pallas kernel); callers keep TF32 off so they
+are exact float32.
 
 :func:`variable_separable_blur` is the golden render path's per-drop
 defocus (``texture_mode="gather"``): every patch its own Gaussian,
@@ -26,6 +25,7 @@ import torch
 _BLOCKED_BLUR_MIN_DIM = 3073
 
 _blur_matrix_cache = {}
+_block_matrix_cache = {}
 _blur_tensor_cache = {}
 
 
@@ -65,28 +65,80 @@ def _blur_matrix(n: int, kernel_key, kernel: np.ndarray) -> np.ndarray:
     return K
 
 
-def _blur_tensor(n: int, kernel_key, kernel: np.ndarray,
-                 device) -> torch.Tensor:
-    key = (n, kernel_key, str(device))
+def _block_band_matrix(kernel_key, kernel: np.ndarray,
+                       block: int) -> np.ndarray:
+    """(block + 2r, block) band matrix: column o holds the kernel taps
+    for output o of a slab that starts r inputs before output 0."""
+    key = (block, kernel_key)
+    if key in _block_matrix_cache:
+        return _block_matrix_cache[key]
+    ksize = kernel.shape[0]
+    B = np.zeros((block + ksize - 1, block), np.float32)
+    for t, wgt in enumerate(kernel):
+        B[np.arange(block) + t, np.arange(block)] = wgt
+    _block_matrix_cache[key] = B
+    return B
+
+
+def _on_device(key, matrix: np.ndarray, device) -> torch.Tensor:
+    """A band matrix, copied to each device once."""
+    key = key + (str(device),)
     if key not in _blur_tensor_cache:
-        _blur_tensor_cache[key] = torch.as_tensor(
-            _blur_matrix(n, kernel_key, kernel), device=device)
+        _blur_tensor_cache[key] = torch.as_tensor(matrix, device=device)
     return _blur_tensor_cache[key]
 
 
 def _dense_axis_blur(x: torch.Tensor, kernel_key, kernel: np.ndarray,
                      axis: int) -> torch.Tensor:
-    """Dense (n, n) band-matrix blur of ``axis`` (-1 or -2)."""
+    """Dense (n, n) band-matrix blur of ``axis`` (-1 or -2): for short
+    axes, and where r >= n folds REFLECT_101 more than once."""
     n = x.shape[axis]
-    r = (kernel.shape[0] - 1) // 2
-    if n >= _BLOCKED_BLUR_MIN_DIM and r < n:
-        raise NotImplementedError(
-            f"blur axis of {n} >= {_BLOCKED_BLUR_MIN_DIM}: the block-slab "
-            "blur for wide axes is not ported")
-    K = _blur_tensor(n, kernel_key, kernel, x.device)
+    K = _on_device(("dense", n, kernel_key),
+                   _blur_matrix(n, kernel_key, kernel), x.device)
     if axis == -1:
         return torch.matmul(x, K.T)
     return torch.matmul(K, x)
+
+
+def _blocked_axis_blur(x: torch.Tensor, kernel_key, kernel: np.ndarray,
+                       axis: int) -> torch.Tensor:
+    """Blur ``axis`` (-1 or -2) of (..., H, W) with overlapping block
+    slabs, REFLECT_101 borders (r < n): depth multiply-adds an output
+    instead of the dense path's n."""
+    assert axis in (-1, -2), axis
+    n = x.shape[axis]
+    r = (kernel.shape[0] - 1) // 2
+    # The JAX package's slab depth: the next multiple of 128 (its matrix
+    # unit's contraction) at or above 2r + 1.
+    depth = -(-(2 * r + 1) // 128) * 128
+    block = depth - 2 * r
+    nb = -(-n // block)
+    ax = x.ndim + axis
+
+    # REFLECT_101 on the real borders, zeros to whole blocks (the
+    # padded tail is cropped from the output).
+    top = x.narrow(ax, 1, r).flip(ax)
+    bot = x.narrow(ax, n - r - 1, r).flip(ax)
+    zshape = list(x.shape)
+    zshape[ax] = nb * block - n
+    xp = torch.cat([top, x, bot, x.new_zeros(zshape)], dim=ax)
+
+    slabs = xp.unfold(ax, depth, block)       # (..., nb[, W], depth) view
+    B = _on_device(("block", block, kernel_key),
+                   _block_band_matrix(kernel_key, kernel, block), x.device)
+    if axis == -1:
+        out = torch.matmul(slabs, B)          # (..., nb, block)
+        return out.flatten(-2)[..., :n]
+    out = torch.matmul(B.T, slabs.transpose(-1, -2))   # (..., nb, block, W)
+    return out.flatten(-3, -2)[..., :n, :]
+
+
+def _axis_blur(x, kernel_key, kernel, axis):
+    n = x.shape[axis]
+    r = (kernel.shape[0] - 1) // 2
+    if n >= _BLOCKED_BLUR_MIN_DIM and r < n:
+        return _blocked_axis_blur(x, kernel_key, kernel, axis)
+    return _dense_axis_blur(x, kernel_key, kernel, axis)
 
 
 def separable_blur_hw(x: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
@@ -94,8 +146,8 @@ def separable_blur_hw(x: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     static 1-D kernel, REFLECT_101 borders (cv2 default)."""
     ksize = kernel.shape[0]
     kernel_key = (ksize, float(kernel[0]), float(kernel[ksize // 2]))
-    out = _dense_axis_blur(x, kernel_key, kernel, -2)
-    return _dense_axis_blur(out, kernel_key, kernel, -1)
+    out = _axis_blur(x, kernel_key, kernel, -2)
+    return _axis_blur(out, kernel_key, kernel, -1)
 
 
 def separable_blur(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:

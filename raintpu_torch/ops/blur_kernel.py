@@ -9,8 +9,8 @@ halo in shared memory, the next tile's input loading while this one's
 sums run, runs of 8 outputs a thread in registers; any radius,
 reflections folded as often as needed) with the tiling of
 :func:`blur_plan`. On CPU tensors it runs the plain version,
-:func:`raintpu_torch.ops.blur.separable_blur_hw` (dense band-matrix
-products), which keeps that function's refusal of axes of 3073 or more.
+:func:`raintpu_torch.ops.blur.separable_blur_hw` (band-matrix products:
+dense below 3073 px an axis, block slabs above).
 """
 
 from __future__ import annotations

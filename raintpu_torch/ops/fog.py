@@ -13,7 +13,7 @@ depth, apply extinction + Henyey-Greenstein in-scattering:
 with the reference's 25x25 sigma-25 Gaussian as ``blur``, run as one
 channel-major 4-channel blur of [f_ext, L_in_rgb] through
 :func:`raintpu_torch.ops.blur_kernel.separable_blur` — the stencil
-kernel on a CUDA card, the dense band-matrix products on the CPU.
+kernel on a CUDA card, the band-matrix products on the CPU.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 Pallas kernel it replaces and against a float64 REFLECT_101 reference.
 
 On the CPU ``raintpu_torch.ops.blur_kernel.separable_blur`` runs its
-plain version (the dense band-matrix blur); the CUDA kernel itself is
+plain version (the band-matrix blur); the CUDA kernel itself is
 held against that plain version in tests/test_torch_gpu.py. Here the
 plain version meets ``separable_blur_pallas(interpret=True)`` on the
 shapes of tests/test_blur_pallas.py, a float64 reference on a shape

@@ -374,8 +374,8 @@ def test_blur_kernel_matches_plain(cuda, shape, ksize):
 
 @pytest.mark.gpu
 def test_blur_kernel_takes_wide_axes(cuda):
-    """Axes of 3073 or more, which the plain version refuses: held
-    against a float64 REFLECT_101 blur."""
+    """Axes of 3073 or more, where the plain version takes block slabs:
+    held against a float64 REFLECT_101 blur."""
     x = torch.rand((1, 40, 3100), device=cuda)
     taps = cv2_gaussian_kernel(25, 25.0)
     got = blur_kernel.separable_blur(x, taps).cpu().numpy()
@@ -453,6 +453,36 @@ def test_envmap_on_the_card_equals_the_cpu(cuda):
                      .manual_seed(3))
     want = envmap.generate_envmap(img, geom)
     got = envmap.generate_envmap(img.to(cuda), geom)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 64, 3100), (2, 3100, 64),
+                                   (1, 3300, 3200)])
+@pytest.mark.parametrize("ksize,sigma", [(15, 2.6), (25, 25.0)])
+def test_blocked_blur_on_the_card_equals_the_cpu(cuda, shape, ksize, sigma):
+    """The plain blur's block slabs (an axis of 3073 or more) on the
+    card's tensors against the same blur on the CPU."""
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(4))
+    taps = cv2_gaussian_kernel(ksize, sigma)
+    got = separable_blur_hw(x.to(cuda), taps)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), separable_blur_hw(x, taps),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_wide_envmap_on_the_card_equals_the_cpu(cuda):
+    """The full-resolution envmap of a 3840 x 2160 frame (focal 6 mm),
+    (2160, 5905): its feather's W axis takes the block slabs."""
+    from raintpu_torch.ops import envmap
+
+    geom = envmap.envmap_geometry(2160, 3840, 6.0)
+    img = torch.rand((1, 2160, 3840, 3), generator=torch.Generator()
+                     .manual_seed(5))
+    want = envmap.generate_envmap(img, geom)
+    got = envmap.generate_envmap(img.to(cuda), geom)
+    assert got.shape == (1, 2160, 5905, 3) and got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
 
 

@@ -79,11 +79,20 @@ def test_separable_blur(rng, shape, ksize, sigma):
           jblur.separable_blur(jnp.asarray(img), k))
 
 
-def test_blur_refuses_wide_axes():
-    k = jblur.cv2_gaussian_kernel(25, 25.0)
-    with pytest.raises(NotImplementedError):
-        tblur.separable_blur_hw(torch.zeros(1, 4, tblur._BLOCKED_BLUR_MIN_DIM),
-                                k)
+@pytest.mark.parametrize("shape", [
+    (1, 4, 3073),     # the threshold itself; r >= H stays dense
+    (2, 12, 3100),    # a wide W, the tail block cropped
+    (2, 3100, 12),    # a tall H
+])
+@pytest.mark.parametrize("ksize,sigma", [(15, 2.6), (25, 25.0)])
+def test_blur_refuses_wide_axes(rng, shape, ksize, sigma):
+    """The dense product refuses axes of _BLOCKED_BLUR_MIN_DIM or more:
+    they take raintpu's block slabs, and the blur still matches it."""
+    assert max(shape) >= tblur._BLOCKED_BLUR_MIN_DIM
+    x = rng.rand(*shape).astype(np.float32)
+    k = jblur.cv2_gaussian_kernel(ksize, sigma)
+    close(tblur.separable_blur_hw(torch.as_tensor(x), k),
+          jblur.separable_blur_hw(jnp.asarray(x), k))
 
 
 def test_fog_rain_layer(rng):
