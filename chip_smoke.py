@@ -52,7 +52,18 @@ Phases:
      ``torch.zeros`` of the same planes;
  10. determinism: two launches on the bench rungs and on the default
      ladder's rungs give the same bits;
- 10a. golden: the golden path on the card — (a) A's batch against the
+ 10a. kernel tools: the JAX package's kernel tools on the card — every
+     knockout variant of the raster kernel built from the checkout
+     (``RAINTPU_ABLATE``), ``ablate=""`` bit-identical to the production
+     call on A's rungs, ``tools.gpu_selfcheck`` (card against CPU on its
+     two-population scene, kernel against plain, the fog against a
+     float64 oracle), ``tools.kernel_anatomy`` (µs per valid drop and
+     per gated slot, rung by rung and all rungs in one launch, beside
+     the bound) and ``tools.kernel_ablation`` (the knockout ladder and
+     the spread/chain anchor bracket on rungs 0-1), one launch counted
+     per timed call, within a 90 s budget; the launch counts are reset
+     after it;
+ 10b. golden: the golden path on the card — (a) A's batch against the
      fused kernel on the same texture picks within 2e-4 but for cutoff
      flips (GOLDEN_ATOL), 0 raster and 1 blur launch during the golden
      render, overflow 0 on both; (b) the [multitile] batch (B's default
@@ -61,7 +72,7 @@ Phases:
      the CPU within the render bars; (d) the one-rank nccl sharded
      render's xla branch within 1e-6 of render_frames'; (e) images/s of
      both paths on A in turns and each one's peak memory (information);
- 10b. suite: the five configurations of ``raintpu_torch.tools.
+ 10c. suite: the five configurations of ``raintpu_torch.tools.
      bench_suite`` at their published sizes (the KITTI intensity sweep
      at 1, 5, 25 and 50 mm/hr, Cityscapes 1024x512 with the envmap
      saved, the nuScenes 6-camera rig at 100 mm/hr, the online step
@@ -74,7 +85,7 @@ Phases:
      Cityscapes' (48, 512, 1024) fog stack; after [nuscenes rig], the
      rig's and the sharded step's images/s beside the rates [nuscenes
      rig] and [sharded] (a) measured in the same run (information);
- 10c. trace: two steps of Cityscapes and two of the online step under
+ 10d. trace: two steps of Cityscapes and two of the online step under
      ``utils.profiling.device_trace`` (a Chrome trace under traces/):
      the top device operations, the device's busy share and the longest
      idle gaps with the host operations that ran meanwhile;
@@ -133,8 +144,9 @@ Phases:
      batch the raster kernel and K4 (fog stack (8, 2160, 3840)) within
      5e-7 of their plain versions, two raster launches bit-identical,
      frame 0's envmap within 1e-5 of the CPU's, and the envmap made
-     again with synchronizing operations made errors (so no copy to
-     the host); raster ms and
+     again with the synchronizing operations that torch detects made
+     errors, and traced by torch.profiler in a process of its own: device
+     operations recorded, no copy to the host among them; raster ms and
      bound, K4 ms, bound and conv2d at both fog stacks, the feather's
      ms, each job's images/s.
 
@@ -193,9 +205,14 @@ from raintpu_torch.physics.simulator import (SimConfig, frame_generator,
 from raintpu_torch.render import frame, pipeline
 from raintpu_torch.render.camera import (CameraSettings, RenderSettings,
                                          settings_from_dict)
-from raintpu_torch.tools import (bench_suite, nuscenes_depth,
-                                 particles_simulation, smooth_depth,
-                                 stage_profile)
+from raintpu_torch.tools import (bench_suite, gpu_selfcheck,
+                                 kernel_ablation, kernel_anatomy,
+                                 nuscenes_depth, particles_simulation,
+                                 smooth_depth, stage_profile)
+from raintpu_torch.tools.kernel_anatomy import bound_ms, raster_bound
+from raintpu_torch.tools.gpu_selfcheck import (KERNEL_ATOL, KERNEL_RTOL,
+                                               RENDER_FAR, RENDER_MAX_ABS,
+                                               RENDER_MAX_FAR_FRACTION)
 from raintpu_torch.utils import profiling
 
 H, W = 375, 1242
@@ -203,25 +220,8 @@ BATCH = 48
 FALLRATE = 10.0
 CAPACITY = 320
 SIM_CAPACITY = 512
-# Kernel against plain: the same float32 operations, each pixel's sums
-# in the same order (the kernel is built with --fmad=false); cos, tanh
-# and log round differently on the card.
-KERNEL_ATOL = 1e-5
-KERNEL_RTOL = 1e-5
-# GPU render against the CPU render of the same frames. Matmul sums and
-# transcendentals round differently on the two devices, which moves
-# values by ~1e-7 — except at the model's discontinuities: a pixel whose
-# alpha sits at ALPHA_CUTOFF (2e-4) can drop to 0 on one side, and the
-# Small/Medium warp canvas width floor(th*|sin| + tw*|cos|) flips by one
-# texel for a streak whose (dx, dy) is a Pythagorean pair such as
-# (5, 12), where the sum is an integer. A flip moves a streak's whole
-# footprint (~100 px). Measured on an H100 (frames 0-1, 931,500 mask
-# pixels): max 1.9e-3, mean 9e-8, 1.4e-4 of the pixels off by > 2e-4.
-# So: a bound on the largest difference such a flip can give, and room
-# for about nine flipped streaks of the ~470 in the two frames.
-RENDER_MAX_ABS = 5e-3
-RENDER_FAR = 2e-4
-RENDER_MAX_FAR_FRACTION = 1e-3
+# Kernel against plain (KERNEL_ATOL + KERNEL_RTOL) and GPU against CPU
+# renders (RENDER_*): the bars of tools/gpu_selfcheck, imported above.
 KERNEL_SOURCE = "raintpu_torch/csrc/fused_raster.cu"
 KERNEL_REPLACES = "raintpu/ops/pallas/fused_kernel.py:1318"
 K2_REPLACES = "raintpu/ops/pallas/fused_kernel.py:274"
@@ -319,9 +319,6 @@ CALL_SPREAD = 1600 / 660
 TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "traces")
 
-# Peak rates of one H100 SXM (NVIDIA data sheet) for the bounds.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 # Times recorded for the kernels' first designs on an NVIDIA H100 80GB
 # HBM3 at 700 W (two runs each, PERF.md section 6), printed beside this
 # run's: the raster kernel on the bench rungs (K1) and on the default
@@ -339,12 +336,10 @@ EARLIER_MS = {"k1": "0.7766 / 0.7718", "k2": "0.3410 / 0.3409",
 SWEEP_RASTER_TILE_HW = ((32, 64), (16, 128), (8, 128), (16, 64), (8, 256),
                         (32, 128))
 SWEEP_TILE_HW = ((32, 128), (64, 64), (64, 128), (128, 64), (32, 256))
-# Raster operations per evaluated window pixel besides the DCT series
-# (5 per mode and axis per rank, 2 per rank): the homography and its
-# divide, 2 cos, the tanh-erf window (4 tanh and their polynomials), the
-# clamp and cutoff, and the plane contributions (log included). Each
-# transcendental counts as one operation.
-RASTER_FIXED_OPS = 70
+# [kernel tools]: the ablation ladder's rungs (the JAX tool's default)
+# and the phase's wall-time budget, the variants' builds included.
+ABLATION_RUNGS = (0, 1)
+KERNEL_TOOLS_BUDGET_S = 90.0
 
 
 def phase(msg: str) -> None:
@@ -440,39 +435,6 @@ def swept_ms(module, name, values, fn, reps):
         setattr(module, name, kept)
     return ", ".join(f"{v}{'*' if v == kept else ''}: {t:.4f}"
                      for v, t in times.items())
-
-
-def bound_ms(flops: float, nbytes: float):
-    """(least ms, what bounds it) from fp32 operations and bytes."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
-
-
-def raster_bound(rungs, image_hw, n_planes):
-    """Bound of one raster call over ``rungs``: the operations of every
-    window pixel inside the image of every valid slot, and the bytes of
-    the operands read once and the planes written once."""
-    h, w = image_hw
-    ops = 0.0
-    nbytes = 0
-    px = 0
-    for r in rungs:
-        ph, pw = r.patch_hw
-        c = r.params.shape[2]
-        valid = (torch.arange(c, device=r.params.device)[None, :]
-                 < r.n_valid[:, None])
-        rows = torch.clamp(h - r.anchor[..., 1], 0, ph)
-        cols = torch.clamp(w - r.anchor[..., 0], 0, pw)
-        n = int((rows * cols)[valid].sum())
-        ranks, my, mx = r.ayc.shape[2], r.ayc.shape[3], r.bxc.shape[3]
-        ops += n * (5 * ranks * (my + mx - 2) + 2 * ranks
-                    + RASTER_FIXED_OPS)
-        px += n
-        nbytes += sum(t.numel() * t.element_size()
-                      for t in (r.params, r.anchor, r.ayc, r.bxc))
-    nbytes += rungs[0].params.shape[0] * n_planes * h * w * 4
-    return bound_ms(ops, nbytes) + (px,)
 
 
 def tile_lists(rungs, image_hw):
@@ -879,6 +841,69 @@ def determinism_phase(bench_rungs, cli_rungs, tex_hw_bench, tex_hw_cli):
               f"(max difference {(first - second).abs().max().item():.3g})")
         if not same:
             raise AssertionError(f"two launches on the {name} differ")
+
+
+def kernel_tools_phase(cfg, rungs, tex_hw, smi):
+    """[kernel tools]: the JAX package's kernel tools on the card.
+    Builds every knockout variant of the raster kernel from the
+    checkout's source (one nvcc each, in parallel) and checks that each
+    loaded library is that source's build with its RAINTPU_ABLATE bits;
+    checks ``ablate=""`` bit-identical to the production call on A's
+    rungs (each alone and all at once); runs ``tools.gpu_selfcheck``
+    (its checks are this phase's), ``tools.kernel_anatomy`` on A's four
+    rungs and the all-rungs launch, and ``tools.kernel_ablation``'s
+    ladder and anchor bracket on ABLATION_RUNGS. Every timed call must
+    count one launch (``kernel_anatomy.launch_ms`` raises otherwise).
+    Fails past KERNEL_TOOLS_BUDGET_S. Resets the launch counts after."""
+    t0 = time.perf_counter()
+    before = fused_raster.fused_raster_composite.launches
+    paths = kernel_ablation.build_variants()
+    phase(f"[kernel tools] {len(paths)} raster variants built or found in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for (label, ablate, _, _), path in zip(kernel_ablation.LADDER, paths):
+        lib = fused_raster.kernel_library(ablate)
+        bits = lib.fused_raster_ablate()
+        want = cuda_build.library_path(
+            "fused_raster", fused_raster.ablate_defines(ablate))
+        phase(f"[kernel tools] {label}: ablate {ablate!r} -> {path.name}, "
+              f"RAINTPU_ABLATE={bits}")
+        if not (path == want and bits == fused_raster.ablate_bits(ablate)):
+            raise AssertionError(f"{label}: the loaded variant is not the "
+                                 "checkout's build of its bits")
+    for label, sub in [(f"rung {i}", [r]) for i, r in enumerate(rungs)] + [
+            ("all rungs", rungs)]:
+        plain_call = fused_raster.fused_raster_composite(sub, cfg.image_hw,
+                                                         tex_hw)
+        empty = fused_raster.fused_raster_composite(sub, cfg.image_hw, tex_hw,
+                                                    ablate="")
+        torch.cuda.synchronize()
+        if not torch.equal(plain_call, empty):
+            raise AssertionError(f"ablate='' differs from production on "
+                                 f"{label}")
+    phase("[kernel tools] ablate='' bit-identical to the production call "
+          "on each of A's rungs and on all at once")
+
+    result = gpu_selfcheck.measure(torch.device("cuda", 0))
+    phase(f"[kernel tools] selfcheck {json.dumps(result)}; on {smi}")
+    fails = gpu_selfcheck.check(result)
+    if fails:
+        raise AssertionError("gpu_selfcheck: " + "; ".join(fails))
+    phase("[kernel tools] GPU self-check PASSED")
+
+    anatomy = kernel_anatomy.anatomy(
+        rungs, cfg.raster.buckets, cfg.image_hw, tex_hw, smi=smi,
+        log=lambda s: phase(f"[kernel tools] anatomy {s}"))
+    ablation = kernel_ablation.ablation(
+        rungs, cfg.raster.buckets, ABLATION_RUNGS, cfg.image_hw, tex_hw,
+        smi=smi, log=lambda s: phase(f"[kernel tools] ablation {s}"))
+    launched = fused_raster.fused_raster_composite.launches - before
+    wall = time.perf_counter() - t0
+    phase(f"[kernel tools] {launched} raster launches (knockouts included) "
+          f"in {wall:.2f} s of a {KERNEL_TOOLS_BUDGET_S:g} s budget; on {smi}")
+    if wall > KERNEL_TOOLS_BUDGET_S:
+        raise AssertionError(f"[kernel tools] took {wall:.1f} s")
+    reset_counts()
+    return dict(selfcheck=result, anatomy=anatomy, ablation=ablation)
 
 
 def golden_compare(label, got, want, names):
@@ -1958,8 +1983,11 @@ def wide_envmap(name, call, smi):
         raise AssertionError(f"{name}: the card's envmap is off the CPU's "
                              f"by {err} > {WIDE_ENV_ATOL}, or not on the "
                              "card")
-    # Any copy to the host synchronizes with the card: in the "error"
-    # sync-debug mode such an operation raises.
+    # Two forms of "no copy to the host". (1) In the "error" sync-debug
+    # mode the synchronizing operations that torch detects raise (a
+    # prototype: it does not detect every one). (2) A fresh process
+    # traces generate_envmap on the same frames with torch.profiler:
+    # device operations recorded, none of them a copy to the host.
     torch.cuda.set_sync_debug_mode("error")
     try:
         again = envmap.generate_envmap(fogged, geom)
@@ -1970,6 +1998,17 @@ def wide_envmap(name, call, smi):
           f"{again.device}")
     if again.device != bg.device:
         raise AssertionError(f"{name}: the envmap left the card")
+    trace = envmap_trace(fogged, cfg)
+    host_reads = {k: v for k, v in trace["syncs"].items()
+                  if k.startswith("Memcpy DtoH")
+                  or k == "aten::_local_scalar_dense"}
+    phase(f"[wide] {name}: generate_envmap traced in a process of its own: "
+          f"{trace['n_ops']} {trace['device']} device ops, host waits "
+          f"{trace['syncs']}, result on {trace['on']}")
+    if not (trace["device"] == "cuda" and trace["n_ops"] > 0
+            and not host_reads and trace["on"].startswith("cuda")):
+        raise AssertionError(f"{name}: the traced envmap recorded no device "
+                             f"op or copied to the host ({host_reads})")
     src_r, src_c, _ = envmap._source_indices(geom, fogged.device,
                                              fogged.dtype)
     raw = fogged[..., src_r, src_c, :]
@@ -1983,6 +2022,45 @@ def wide_envmap(name, call, smi):
           f"at 15 taps on the same {tuple(planes.shape)} planes {k4:.4f} ms "
           f"(information); on {smi}")
     return err
+
+
+ENVMAP_TRACE = """
+import json, sys, tempfile
+import torch
+from raintpu_torch.ops import envmap
+from raintpu_torch.utils import profiling
+fogged = torch.load(sys.argv[1]).to("cuda")
+geom = envmap.envmap_geometry(int(sys.argv[2]), int(sys.argv[3]),
+                              float(sys.argv[4]))
+envmap.generate_envmap(fogged, geom)   # the index map reaches the card
+torch.cuda.synchronize()
+with tempfile.TemporaryDirectory() as logdir:
+    with profiling.device_trace(logdir) as prof:
+        out = envmap.generate_envmap(fogged, geom)
+        torch.cuda.synchronize()
+    s = profiling.trace_summary(prof)
+print(json.dumps(dict(device=s["device"], n_ops=s["n_ops"],
+                      syncs=s["syncs"], on=str(out.device))))
+"""
+
+
+def envmap_trace(fogged, cfg):
+    """``generate_envmap`` of ``fogged`` traced by torch.profiler in a
+    fresh process (after one untraced call): the summary's device kind,
+    device op count and host waits for the device by name, and the
+    result's device."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fogged.pt")
+        torch.save(fogged.cpu(), path)
+        proc = subprocess.run(
+            [sys.executable, "-c", ENVMAP_TRACE, path,
+             *map(str, cfg.image_hw), str(cfg.settings.camera.focal)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the envmap trace failed ({proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def wide_config(tmp, name, hw, env_w, n_frames, batch, dev, smi):
@@ -2584,6 +2662,8 @@ def main() -> None:
     k2 = timed(multitile_phase, dev, smi)
     timed(determinism_phase, rungs, k2["rungs"],
           tuple(data[5].raw.shape[1:]), k2["tex_hw"])
+    timed(kernel_tools_phase, data[0], rungs, tuple(data[5].raw.shape[1:]),
+          smi)
     golden = timed(golden_phase, data, tex_idx, k2.pop("inputs"), smi)
     suite = timed(suite_phase, dev, smi)
     timed(trace_phase, suite["steps"], smi)

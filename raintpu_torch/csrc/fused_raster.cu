@@ -69,9 +69,52 @@
 // series on 32 of them at a time, so that thin streaks do not leave most
 // lanes idle. What it costs: each (drop, tile) pair stages the drop
 // again, and small overlaps leave lanes idle.
+//
+// Knockouts (tools/kernel_ablation): built with -DRAINTPU_ABLATE=<bits>,
+// the kernel leaves out one component of its work per set bit, and its
+// planes then hold garbage by design:
+//   1 noeval   the Chebyshev series and the tanh-erf window: g is the
+//              constant 0.5, above ALPHA_CUTOFF, so every pixel inside
+//              the hard cut contributes;
+//   2 noplace  the inverse homography: the texture coordinates are the
+//              window pixel scaled to [0, 1]; the hard cut stays;
+//   4 noaccum  the shared-memory adds: the contributions are still
+//              computed, into a per-thread sink;
+//   8 nowrite  the tile's plane store to HBM;
+//  16 nostage  the warp's staging of params and coefficients (the header
+//              stays; each staging slot holds one drop's params, loaded
+//              once a block); with noeval and noplace only.
+// The JAX kernel's window-read DMAs and their semaphore waits (noread,
+// nordwait) have no counterpart here: the planes are summed in shared
+// memory and written once, never read. What every knockout leaves is the
+// residual: the slot scan, list building, headers, barriers and launch.
+// A knocked-out result feeds a store under a condition that never holds
+// but that the compiler cannot disprove (SINK_NEVER), so the work that
+// remains is not eliminated with it. Every knockout is a preprocessor
+// branch: with RAINTPU_ABLATE 0, the default and the only build the
+// render path loads, the compiler sees the production kernel's code and
+// nothing else.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#ifndef RAINTPU_ABLATE
+#define RAINTPU_ABLATE 0
+#endif
+// Knockout bits (ops/fused_raster.py mirrors them).
+#define ABLATE_NOEVAL 1
+#define ABLATE_NOPLACE 2
+#define ABLATE_NOACCUM 4
+#define ABLATE_NOWRITE 8
+#define ABLATE_NOSTAGE 16
+#define ABLATED(bit) ((RAINTPU_ABLATE) & (bit))
+#if (RAINTPU_ABLATE) & ~31
+#error "RAINTPU_ABLATE: unknown knockout bit"
+#endif
+#if ABLATED(ABLATE_NOSTAGE) && \
+    !(ABLATED(ABLATE_NOEVAL) && ABLATED(ABLATE_NOPLACE))
+#error "RAINTPU_ABLATE: nostage needs noeval and noplace"
+#endif
 
 // One rung's operands and shapes: a record of the launch's rung table.
 // Outside the unnamed namespace, so that the C entry keeps external
@@ -119,6 +162,12 @@ constexpr int MAX_SMEM_BYTES = 232448;
 constexpr int H_LX = 0, H_LY = 1, H_OW = 2, H_OH = 3, H_J0 = 4, H_I0 = 5,
               H_AX = 6, H_AY = 7, H_RUNG = 8;
 
+#if RAINTPU_ABLATE
+// A bit pattern (a NaN) that no sum of the kernel's values takes: a sink
+// is stored only when it equals it, which never happens.
+constexpr unsigned SINK_NEVER = 0xffffffffu;
+#endif
+
 struct RungTable {
   Rung rung[MAX_RUNGS];
 };
@@ -142,6 +191,7 @@ __device__ __forceinline__ void stage_drop(const RungTable& table, int e,
   const int c = e & ((1 << SLOT_BITS) - 1);
   const Rung& rg = table.rung[r];
   const size_t drop = (size_t)t.b * rg.C + c;
+#if !ABLATED(ABLATE_NOSTAGE)
   for (int k = lane; k < N_PARAMS; k += 32)
     dst[k] = rg.params[((size_t)t.b * N_PARAMS + k) * rg.C + c];
   const int ny = rg.R * rg.My, nx = rg.R * rg.Mx;
@@ -149,6 +199,7 @@ __device__ __forceinline__ void stage_drop(const RungTable& table, int e,
     dst[N_PARAMS + k] = rg.ayc[drop * ny + k];
   for (int k = lane; k < nx; k += 32)
     dst[N_PARAMS + ny + k] = rg.bxc[drop * nx + k];
+#endif
   if (lane == 0) {
     const int ax = rg.anchor[drop * 2];
     const int ay = rg.anchor[drop * 2 + 1];
@@ -182,12 +233,16 @@ __device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
 
 // The block's threads add one staged drop's contributions over its
 // overlap with the tile into the accumulators; the drop's series has NR
-// ranks.
+// ranks. The noplace knockout also takes the window's (ph, pw).
 template <int NR>
 __device__ __forceinline__ void accumulate_drop(const float* prm,
                                                 const int* hdr, int My,
                                                 int Mx, const Tile& t,
-                                                float* acc) {
+                                                float* acc
+#if ABLATED(ABLATE_NOPLACE)
+                                                , int ph, int pw
+#endif
+                                                ) {
   const float* cy = prm + N_PARAMS;    // NR * My
   const float* cx = cy + NR * My;      // NR * Mx
   const int lx0 = hdr[H_LX], ly0 = hdr[H_LY], ow = hdr[H_OW];
@@ -198,9 +253,16 @@ __device__ __forceinline__ void accumulate_drop(const float* prm,
   const int tp = t.tile_px;
   // The drop's params are read from shared memory where they are used,
   // not held in registers across the pixel loop.
+#if ABLATED(ABLATE_NOACCUM)
+  // The contributions' sum, stored under SINK_NEVER on the way out.
+  float sink = 0.0f;
+#endif
 
   // One pixel inside the cut: series, window, contributions.
   auto eval = [&](int dy, int dx, float xhat, float yhat) {
+#if ABLATED(ABLATE_NOEVAL)
+    const float g = 0.5f;
+#else
     // Damped DCT series via Chebyshev recurrence. Each rank's sums take
     // the same terms in the same order as a rank-by-rank loop; the
     // Chebyshev values T_m, the same for every rank, are computed once.
@@ -249,7 +311,17 @@ __device__ __forceinline__ void accumulate_drop(const float* prm,
                                 - tanh_erf((yhat - vu) / den_y));
     g = gs * win;
     if (!(g > ALPHA_CUTOFF)) return;   // every contribution is 0
+#endif
 
+#if ABLATED(ABLATE_NOACCUM)
+    sink += g + logf(fmaxf(1.0f - g * prm[P_LO], LOG_EPS)) +
+            g * prm[P_ADDR] + g * prm[P_ADDG] + g * prm[P_ADDB];
+    if (with_sat)
+      sink += fminf(fmaxf(g * prm[P_SATR], 0.0f), 1.0f) +
+              fminf(fmaxf(g * prm[P_SATG], 0.0f), 1.0f) +
+              fminf(fmaxf(g * prm[P_SATB], 0.0f), 1.0f);
+    (void)tp;
+#else
     float* a = acc + (ly0 + dy) * t.tile_w + lx0 + dx;
     a[0] += g;
     a[tp] += logf(fmaxf(1.0f - g * prm[P_LO], LOG_EPS));
@@ -261,12 +333,17 @@ __device__ __forceinline__ void accumulate_drop(const float* prm,
       a[6 * tp] += fminf(fmaxf(g * prm[P_SATG], 0.0f), 1.0f);
       a[7 * tp] += fminf(fmaxf(g * prm[P_SATB], 0.0f), 1.0f);
     }
+#endif
   };
 
   // Maps window pixel (i0 + dy, j0 + dx) to texture coordinates; true
   // inside the hard cut of the content window. Outside it the window is
   // 0, and so is every contribution.
   auto project = [&](int dy, int dx, float& xhat, float& yhat) {
+#if ABLATED(ABLATE_NOPLACE)
+    xhat = ((float)(j0 + dx) + 0.5f) / (float)pw;
+    yhat = ((float)(i0 + dy) + 0.5f) / (float)ph;
+#else
     const float lx = (float)(j0 + dx) + ((float)hdr[H_AX] - prm[P_MINCX]);
     const float ly = (float)(i0 + dy) + ((float)hdr[H_AY] - prm[P_MINCY]);
     const float hx = prm[P_M00] * lx + prm[P_M01] * ly + prm[P_M02];
@@ -276,6 +353,7 @@ __device__ __forceinline__ void accumulate_drop(const float* prm,
     const float inv_hz = 1.0f / hz;
     xhat = (hx * inv_hz + 0.5f) * t.inv_tw;
     yhat = (hy * inv_hz + 0.5f) * t.inv_th;
+#endif
     const float mx = 0.25f + 4.0f * fmaxf(prm[P_SGX], 2e-3f);
     const float my = 0.25f + 4.0f * fmaxf(prm[P_SGY], 2e-3f);
     return xhat >= prm[P_UL] - mx && xhat <= prm[P_UU] + mx &&
@@ -303,6 +381,9 @@ __device__ __forceinline__ void accumulate_drop(const float* prm,
       float xhat, yhat;
       if (project(dy, dx, xhat, yhat)) eval(dy, dx, xhat, yhat);
     }
+#if ABLATED(ABLATE_NOACCUM)
+    if (__float_as_uint(sink) == SINK_NEVER) acc[threadIdx.x] = sink;
+#endif
     return;
   }
   // A long series: the warp's pixels inside the cut join a queue held
@@ -351,6 +432,9 @@ __device__ __forceinline__ void accumulate_drop(const float* prm,
     count += k - 32;
   }
   if (lane < count) eval(q_yx >> 16, q_yx & 0xffff, q_x, q_y);
+#if ABLATED(ABLATE_NOACCUM)
+  if (__float_as_uint(sink) == SINK_NEVER) acc[threadIdx.x] = sink;
+#endif
 }
 
 // accumulate_drop for the drop's own rank R <= NRMAX.
@@ -366,7 +450,11 @@ __device__ __forceinline__ void accumulate_any(const RungTable& table,
       return;
     }
   }
+#if ABLATED(ABLATE_NOPLACE)
+  accumulate_drop<NRMAX>(prm, hdr, rg.My, rg.Mx, t, acc, rg.ph, rg.pw);
+#else
   accumulate_drop<NRMAX>(prm, hdr, rg.My, rg.Mx, t, acc);
+#endif
 }
 
 __device__ __forceinline__ bool rects_meet(const int* a, const int* b) {
@@ -438,6 +526,17 @@ fused_raster_kernel(const __grid_constant__ RungTable table, int n_rungs,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   for (int k = tid; k < n_planes * t.tile_px; k += THREADS) acc[k] = 0.0f;
+#if ABLATED(ABLATE_NOSTAGE)
+  // No drop is staged: every staging slot holds the params of rung 0's
+  // slot 0 in this frame, loaded once. The knockouts this one needs
+  // leave only their content band, blur sigmas and blend rows read.
+  for (int k = tid; k < STAGE * N_PARAMS; k += THREADS)
+    staged[(k / N_PARAMS) * drop_floats + k % N_PARAMS] =
+        table.rung[0].C > 0
+            ? table.rung[0].params[((size_t)t.b * N_PARAMS + k % N_PARAMS) *
+                                   table.rung[0].C]
+            : 0.0f;
+#endif
 
   // Bin: the valid slots of every rung, concatenated in rung order
   // (rung r's slots [0, n_r) at [start[r], start[r + 1])), THREADS slots
@@ -499,6 +598,13 @@ fused_raster_kernel(const __grid_constant__ RungTable table, int n_rungs,
     draw_list<NRMAX>(table, list, n_list, t, acc, hdr, staged, drop_floats);
   __syncthreads();
 
+#if ABLATED(ABLATE_NOWRITE)
+  // The planes are not written; one read of the tile's sums, stored only
+  // under SINK_NEVER, keeps the adds live.
+  const float kept = acc[tid];
+  if (__float_as_uint(kept) == SINK_NEVER) planes[tid] = kept;
+  (void)H; (void)W; (void)lane;
+#else
   // Write the tile's planes once, a warp a row.
   const size_t plane = (size_t)H * W;
   float* out = planes + (size_t)t.b * n_planes * plane +
@@ -509,6 +615,7 @@ fused_raster_kernel(const __grid_constant__ RungTable table, int n_rungs,
       for (int col = lane; col < cols; col += 32)
         out[pl * plane + (size_t)row * W + col] =
             acc[pl * t.tile_px + row * tile_w + col];
+#endif
 }
 
 }  // namespace
@@ -566,6 +673,9 @@ extern "C" int fused_raster_launch(const Rung* rungs, int n_rungs,
       (int)tiles_x, coef_floats);
   return (int)cudaGetLastError();
 }
+
+// The knockout bits this library was built with (0: production).
+extern "C" int fused_raster_ablate() { return RAINTPU_ABLATE; }
 
 extern "C" const char* fused_raster_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

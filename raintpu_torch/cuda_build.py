@@ -6,8 +6,12 @@ exposes a plain C interface and is compiled at first use (or all at
 once by :func:`build_all`, one compiler per source in parallel) into
 ``raintpu_torch/_build/<name>-<hash>.so``, where the hash covers the
 source and the compiler flags, so an edited source rebuilds and an
-unchanged one loads the library already built. Nothing here includes
-PyTorch's headers: a build takes seconds.
+unchanged one loads the library already built. A variant of a source
+built with preprocessor ``defines`` (e.g. ``("RAINTPU_ABLATE=3",)``,
+passed as ``-D`` flags that the hash covers) is a library of its own;
+with no defines the command line, the hash and the path are those of
+the plain build. Nothing here includes PyTorch's headers: a build takes
+seconds.
 """
 
 from __future__ import annotations
@@ -49,41 +53,51 @@ def _source(name: str) -> Path:
     return cu if cu.exists() else CSRC / f"{name}.cc"
 
 
+def _flags(src: Path, defines=()) -> tuple:
+    base = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+    return base + tuple(f"-D{d}" for d in defines)
+
+
 def _compiler(src: Path):
     if src.suffix == ".cu":
-        return [nvcc_path(), *NVCC_FLAGS]
+        return [nvcc_path()]
     gxx = shutil.which("g++")
     if gxx is None:
         raise FileNotFoundError("g++ not found")
-    return [gxx, *GXX_FLAGS]
+    return [gxx]
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines=()) -> Path:
     src = _source(name)
-    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(
+        _flags(src, defines)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu (or .cc) unless its library is built."""
-    return build_all([name])[0]
+def build(name: str, defines=()) -> Path:
+    """Compile csrc/<name>.cu (or .cc) with ``defines`` unless that
+    library is built."""
+    return build_all([name], [defines])[0]
 
 
-def build_all(names) -> list:
-    """Compile every source of ``names`` not built yet, one compiler
-    process per source, all started together. Returns the libraries'
+def build_all(names, defines=()) -> list:
+    """Compile every library of ``names`` not built yet, one compiler
+    process per library, all started together. ``defines``: one tuple
+    of preprocessor defines per name (empty: none for any name), so one
+    call can build several variants of a source. Returns the libraries'
     paths."""
-    outs = [library_path(name) for name in names]
+    defines = list(defines) or [()] * len(names)
+    if len(defines) != len(names):
+        raise ValueError("build_all: one tuple of defines per name")
+    outs = [library_path(name, d) for name, d in zip(names, defines)]
     jobs = []
-    for name, out in zip(names, outs):
+    for name, d, out in zip(names, defines, outs):
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         src = _source(name)
-        cmd = [*_compiler(src), "-o", str(tmp), str(src)]
+        cmd = [*_compiler(src), *_flags(src, d), "-o", str(tmp), str(src)]
         jobs.append((cmd, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -100,8 +114,10 @@ def build_all(names) -> list:
     return outs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>, once per process."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
-    return _loaded[name]
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name> with ``defines``, once per
+    (name, defines) per process."""
+    key = (name, tuple(defines))
+    if key not in _loaded:
+        _loaded[key] = ctypes.CDLL(str(build(name, key[1])))
+    return _loaded[key]

@@ -90,6 +90,11 @@ MAX_SMEM_BYTES = 232448
 # CUDA's grid limits: x up to 2**31 - 1, y (the frames) up to 65535.
 MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_Y = 65535
+# The kernel's compile-time knockouts (csrc/fused_raster.cu,
+# RAINTPU_ABLATE), for tools/kernel_ablation: the bit of each component
+# a variant leaves out. The render path never sets one.
+ABLATE_BITS = {"noeval": 1, "noplace": 2, "noaccum": 4, "nowrite": 8,
+               "nostage": 16}
 
 
 @dataclasses.dataclass
@@ -377,24 +382,52 @@ class _RungRecord(ctypes.Structure):
                     for k in ("C", "R", "My", "Mx", "ph", "pw")]
 
 
-def _kernel_fn():
+def ablate_bits(ablate: str) -> int:
+    """The knockout bits of ``ablate``: names of ABLATE_BITS joined by
+    "+" ("" for none). An unknown or repeated name raises ValueError,
+    and so does nostage without noeval and noplace (its staging slots
+    would feed them garbage)."""
+    names = [n for n in ablate.split("+") if n] if ablate else []
+    unknown = [n for n in names if n not in ABLATE_BITS]
+    if unknown or len(set(names)) != len(names):
+        raise ValueError(f"fused_raster: ablate {ablate!r}: each name once, "
+                         f"of {sorted(ABLATE_BITS)}")
+    bits = sum(ABLATE_BITS[n] for n in names)
+    need = ABLATE_BITS["noeval"] | ABLATE_BITS["noplace"]
+    if bits & ABLATE_BITS["nostage"] and bits & need != need:
+        raise ValueError("fused_raster: nostage needs noeval+noplace")
+    return bits
+
+
+def ablate_defines(ablate: str) -> tuple:
+    """The preprocessor defines of ``ablate``'s kernel variant: none for
+    the production kernel."""
+    bits = ablate_bits(ablate)
+    return (f"RAINTPU_ABLATE={bits}",) if bits else ()
+
+
+def kernel_library(ablate: str = ""):
+    """The loaded library of ``ablate``'s kernel variant, built from
+    csrc/fused_raster.cu on first use (into ``raintpu_torch/_build/``),
+    once per variant per process."""
     from raintpu_torch import cuda_build
 
-    lib = cuda_build.load("fused_raster")
-    fn = lib.fused_raster_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.POINTER(_RungRecord), ctypes.c_int,
-                        ctypes.c_void_p] + [ctypes.c_int] * 4
-                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    lib = cuda_build.load("fused_raster", ablate_defines(ablate))
+    if lib.fused_raster_launch.argtypes is None:
+        lib.fused_raster_launch.argtypes = (
+            [ctypes.POINTER(_RungRecord), ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.fused_raster_launch.restype = ctypes.c_int
         lib.fused_raster_error_string.argtypes = [ctypes.c_int]
         lib.fused_raster_error_string.restype = ctypes.c_char_p
-    return lib, fn
+        lib.fused_raster_ablate.argtypes = []
+        lib.fused_raster_ablate.restype = ctypes.c_int
+    return lib
 
 
 def _launch(planes: torch.Tensor, rungs: Sequence[RasterRung],
-            tex_hw) -> None:
+            tex_hw, ablate: str) -> None:
     bsz, n_planes, h, w = planes.shape
     plan = tile_plan((h, w), [(r.ayc.shape[2], r.ayc.shape[3],
                                r.bxc.shape[3]) for r in rungs],
@@ -404,13 +437,14 @@ def _launch(planes: torch.Tensor, rungs: Sequence[RasterRung],
                     r.ayc.data_ptr(), r.bxc.data_ptr(), r.n_valid.data_ptr(),
                     r.params.shape[2], r.ayc.shape[2], r.ayc.shape[3],
                     r.bxc.shape[3], *r.patch_hw) for r in rungs])
-    lib, fn = _kernel_fn()
+    lib = kernel_library(ablate)
     th, tw = tex_hw
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        err = fn(table, len(rungs), planes.data_ptr(), bsz, h, w, n_planes,
-                 1.0 / th, 1.0 / tw, *plan.tile_hw, *plan.grid,
-                 plan.smem_bytes, plan.list_cap, plan.coef_floats, stream)
+        err = lib.fused_raster_launch(
+            table, len(rungs), planes.data_ptr(), bsz, h, w, n_planes,
+            1.0 / th, 1.0 / tw, *plan.tile_hw, *plan.grid, plan.smem_bytes,
+            plan.list_cap, plan.coef_floats, stream)
     if err != 0:
         raise RuntimeError("fused_raster kernel launch failed: "
                            + lib.fused_raster_error_string(err).decode())
@@ -421,20 +455,30 @@ def _launch(planes: torch.Tensor, rungs: Sequence[RasterRung],
 
 
 def fused_raster_composite(rungs: Sequence[RasterRung], image_hw,
-                           tex_hw, n_planes: int = N_PLANES) -> torch.Tensor:
+                           tex_hw, n_planes: int = N_PLANES,
+                           ablate: str = "") -> torch.Tensor:
     """Accumulate every rung's drops into fresh (B, n_planes, H, W)
     float32 planes (n_planes 5, or 8 with the saturation planes): the
     CUDA kernel (one launch for all rungs, planned by :func:`tile_plan`,
     on the current stream, no synchronisation) for CUDA tensors, the
     plain version for CPU tensors. At most ``MAX_RUNGS`` rungs, which
     must agree on the batch size and the device.
-    ``fused_raster_composite.launches`` counts kernel launches, and
-    ``fused_raster_composite.carried`` counts them by the rungs' (ph, pw)
-    windows that each carried (a tuple, in rung order)."""
+    ``ablate`` (names of ABLATE_BITS joined by "+", see
+    :func:`ablate_bits`) launches a knockout variant of the kernel,
+    whose planes are garbage by design: the kernel ablation's tool, on
+    CUDA tensors only (a knockout has no plain version). "" is the
+    production kernel.
+    ``fused_raster_composite.launches`` counts kernel launches, knockout
+    variants' included, and ``fused_raster_composite.carried`` counts
+    them by the rungs' (ph, pw) windows that each carried (a tuple, in
+    rung order)."""
     if not 1 <= len(rungs) <= MAX_RUNGS:
         raise ValueError(f"fused_raster: one call takes 1 to {MAX_RUNGS} "
                          f"rungs, not {len(rungs)}")
     device = rungs[0].params.device
+    if ablate_bits(ablate) and device.type != "cuda":
+        raise ValueError(f"fused_raster: ablate {ablate!r} exists only in "
+                         "the CUDA kernel; no plain version")
     if device.type == "cpu":
         return fused_raster_plain(rungs, image_hw, tex_hw, n_planes)
     if device.type != "cuda":
@@ -444,7 +488,7 @@ def fused_raster_composite(rungs: Sequence[RasterRung], image_hw,
                          + tuple(image_hw), dtype=torch.float32,
                          device=device)
     if planes.numel():
-        _launch(planes, rungs, tex_hw)
+        _launch(planes, rungs, tex_hw, ablate)
     return planes
 
 

@@ -245,7 +245,8 @@ def frame_generator(seed: int, frame_idx: int, device) -> torch.Generator:
         (int(state[0]) | (int(state[1]) << 32)) & ((1 << 63) - 1))
 
 
-def _stack_batches(batches: Sequence[DropBatch]) -> DropBatch:
+def stack_batches(batches: Sequence[DropBatch]) -> DropBatch:
+    """The frames of ``batches``, concatenated along the batch axis."""
     return DropBatch(**{f.name: torch.cat([getattr(b, f.name)
                                            for b in batches])
                         for f in dataclasses.fields(DropBatch)})
@@ -260,7 +261,7 @@ def simulate_frames_keyed(generators: Sequence[torch.Generator],
     """Like :func:`simulate_frames`, but frame b draws from
     ``generators[b]`` alone, so its drops equal a one-frame simulation
     on that generator whatever batch it is in."""
-    return _stack_batches([
+    return stack_batches([
         simulate_frames(g, cfg, fallrate[b:b + 1], cam_speed_mps[b:b + 1],
                         exposure_s[b:b + 1], focal_scale[b:b + 1])
         for b, g in enumerate(generators)])

@@ -20,6 +20,7 @@ from raintpu_torch.ops.rasterize import BucketSpec, RasterConfig
 from raintpu_torch.physics.simulator import SimConfig, simulate_frames
 from raintpu_torch.render import frame
 from raintpu_torch.render.camera import CameraSettings, RenderSettings
+from raintpu_torch.tools import gpu_selfcheck, kernel_ablation
 
 W, H, B = 320, 160, 4
 LADDER = (BucketSpec(24, 32, 5, 96, 12, 6, 3),
@@ -664,3 +665,46 @@ def test_golden_gather_on_the_card_matches_the_cpu(cuda):
         d = (getattr(got, name).cpu() - getattr(want, name)).abs()
         assert d.max() <= 5e-3, name
         assert (d > 2e-4).float().mean() <= 1e-3, name
+
+
+def _scene_rungs(dev):
+    cfg, gen, drops, bg, depth, tex, edges = _scene(dev)
+    _, env, _ = frame.frame_background(bg, depth, cfg)
+    prep, _ = frame.drop_fused_params(env, drops, tex, edges, cfg,
+                                      generator=gen)
+    return frame.kernel_rungs(prep, cfg), cfg, tuple(tex.raw.shape[1:])
+
+
+@pytest.mark.gpu
+def test_ablate_empty_is_the_production_kernel(cuda):
+    rungs, cfg, tex_hw = _scene_rungs(cuda)
+    for sub in [[r] for r in rungs] + [rungs]:
+        want = tfr.fused_raster_composite(sub, cfg.image_hw, tex_hw)
+        got = tfr.fused_raster_composite(sub, cfg.image_hw, tex_hw,
+                                         ablate="")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ablate", [a for _, a, _, _ in
+                                    kernel_ablation.LADDER],
+                         ids=lambda a: a or "production")
+def test_knockout_variant_builds_and_launches(cuda, ablate):
+    """Each knockout variant of the ablation ladder builds from the
+    source with its bits and launches once per call (its planes are
+    garbage by design)."""
+    rungs, cfg, tex_hw = _scene_rungs(cuda)
+    lib = tfr.kernel_library(ablate)
+    assert lib.fused_raster_ablate() == tfr.ablate_bits(ablate)
+    before = tfr.fused_raster_composite.launches
+    out = tfr.fused_raster_composite(rungs, cfg.image_hw, tex_hw,
+                                     ablate=ablate)
+    torch.cuda.synchronize()
+    assert tfr.fused_raster_composite.launches - before == 1
+    assert tuple(out.shape) == (B, tfr.N_PLANES, H, W)
+
+
+@pytest.mark.gpu
+def test_gpu_selfcheck_passes(cuda):
+    assert gpu_selfcheck.main([]) == 0

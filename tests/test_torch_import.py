@@ -48,6 +48,10 @@ _SCRIPT = textwrap.dedent("""
                  "raintpu_torch.tools.check_difference",
                  "raintpu_torch.tools.stage_profile",
                  "raintpu_torch.tools.bench_suite",
+                 "raintpu_torch.tools.gpu_selfcheck",
+                 "raintpu_torch.tools.kernel_anatomy",
+                 "raintpu_torch.tools.kernel_ablation",
+                 "raintpu_torch.tools.kernel_sass",
                  "raintpu_torch.utils.profiling",
                  "raintpu_torch.parallel.mesh",
                  "raintpu_torch.parallel.distributed",
