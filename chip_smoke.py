@@ -33,6 +33,17 @@ Phases:
   6. timing (information, not a claim): images/s of the render with the
      float inputs perturbed each iteration, and kernel vs plain ms, the
      kernel also under other image tiles (TILE_HW);
+  6a. bench: the headline benchmark's (``raintpu_torch.bench``) fitted
+     ladder: A with FITTED=1 built here, its guard render (one raster
+     and one blur launch, counted as the path "bench_fitted"), and the
+     raster kernel against plain on that render's rungs (all rungs in
+     one launch, two launches bit-identical); then ``python -m
+     raintpu_torch.bench`` in a process of its own, with its defaults
+     and with FITTED=1: each exits 0 and prints its JSON line last,
+     with value and steady_state > 0, one raster and one blur launch in
+     its guard render, this card's nvidia-smi name and power limit and
+     the hand ladder (defaults) or the ladder fitted here (FITTED=1);
+     both lines are printed beside [timing]'s images/s (information);
   7. sharded: the bench batch through ``render_frames_sharded`` in a
      one-rank nccl group, torch.equal to ``render_frames`` with one
      raster and one blur launch; then two ranks on the one card
@@ -183,6 +194,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from raintpu_torch import bench as rbench
 from raintpu_torch import cli, cuda_build
 from raintpu_torch.data import db
 from raintpu_torch.data.nuscenes_data import NuScenesCameraData
@@ -194,13 +206,12 @@ from raintpu_torch.ops.blur import (cv2_gaussian_kernel, separable_blur,
                                     separable_blur_hw)
 from raintpu_torch.ops.fused_raster import (ALPHA_CUTOFF, N_PLANES,
                                             N_PLANES_SAT)
-from raintpu_torch.ops.rasterize import RasterConfig, select_textures
+from raintpu_torch.ops.rasterize import select_textures
 from raintpu_torch.parallel import distributed
 from raintpu_torch.parallel import mesh as pmesh
 from raintpu_torch.particles import native, xml_io
 from raintpu_torch.particles.schema import TYPE_BIG, compact_drop_batch
 from raintpu_torch.physics.simulator import (SimConfig, frame_generator,
-                                             simulate_frames,
                                              simulate_frames_keyed)
 from raintpu_torch.render import frame, pipeline
 from raintpu_torch.render.camera import (CameraSettings, RenderSettings,
@@ -215,11 +226,11 @@ from raintpu_torch.tools.gpu_selfcheck import (KERNEL_ATOL, KERNEL_RTOL,
                                                RENDER_MAX_FAR_FRACTION)
 from raintpu_torch.utils import profiling
 
-H, W = 375, 1242
-BATCH = 48
-FALLRATE = 10.0
-CAPACITY = 320
-SIM_CAPACITY = 512
+# Workload A, as the headline bench (raintpu_torch.bench) defines it.
+H, W = rbench.HW
+BATCH = rbench.BATCH
+FALLRATE = rbench.FALLRATE
+CAPACITY = rbench.CAPACITY
 # Kernel against plain (KERNEL_ATOL + KERNEL_RTOL) and GPU against CPU
 # renders (RENDER_*): the bars of tools/gpu_selfcheck, imported above.
 KERNEL_SOURCE = "raintpu_torch/csrc/fused_raster.cu"
@@ -231,6 +242,12 @@ BLUR_REPLACES = "raintpu/ops/pallas/blur_kernel.py:282"
 # The blur kernel against its plain version (band matmuls): the
 # same products, summed in another order.
 BLUR_ATOL = 1e-5
+
+# [bench]: python -m raintpu_torch.bench with A's defaults and with the
+# fitted ladder, each in a process of its own.
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+BENCH_RUNS = (("defaults", {}), ("fitted", {"FITTED": "1"}))
+BENCH_TIMEOUT_S = 300
 
 # The online CLI path: customdb at KITTI size, the default ladder.
 CLI_FRAMES = 16
@@ -316,8 +333,7 @@ SUITE_ITERS = 6
 CALL_SPREAD = 1600 / 660
 # [trace]: two steps of a configuration under torch.profiler; the Chrome
 # trace goes to traces/ (git-ignored) beside this script.
-TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "traces")
+TRACE_DIR = os.path.join(REPO_DIR, "traces")
 
 # Times recorded for the kernels' first designs on an NVIDIA H100 80GB
 # HBM3 at 700 W (two runs each, PERF.md section 6), printed beside this
@@ -468,34 +484,16 @@ def tile_lists(rungs, image_hw):
 
 
 def workload_phase(dev):
-    settings = RenderSettings(camera=CameraSettings())  # KITTI defaults
-    cfg = frame.PipelineConfig(
-        settings=settings, image_hw=(H, W), fallrate=FALLRATE,
-        raster=RasterConfig(buckets=stage_profile.HAND_LADDER),
-        cone_downsample=4)
+    """Workload A, built by the bench (``raintpu_torch.bench.workload``)
+    from a generator whose later draws pick the textures."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    sim_cfg = SimConfig.from_settings(settings, capacity=SIM_CAPACITY)
-
-    def full(v):
-        return torch.full((BATCH,), float(v), dtype=torch.float32,
-                          device=dev)
-
-    drops = simulate_frames(gen, sim_cfg, full(FALLRATE), full(8.0),
-                            full(settings.camera.exposure_s), full(1.0))
-    drops = compact_drop_batch(drops, CAPACITY)
-    rng = np.random.RandomState(0)
-    bg = torch.as_tensor(rng.rand(BATCH, H, W, 3).astype(np.float32),
-                         device=dev)
-    depth = torch.as_tensor(
-        (rng.rand(BATCH, H, W) * 60 + 3).astype(np.float32), device=dev)
-    db = procedural_streak_database()
-    tex = texture_bank(db, device=dev)
-    edges = torch.as_tensor(db.bin_edges, device=dev)
-    per_frame = drops.count().float()
+    w = rbench.workload(dev, (H, W), BATCH, CAPACITY, FALLRATE,
+                        generator=gen)
+    per_frame = w.drops.count().float()
     phase(f"[workload] {BATCH} frames {W}x{H} @ {FALLRATE:g} mm/hr; "
           f"drops per frame mean {per_frame.mean().item():.1f} "
           f"max {per_frame.max().item():.0f} (capacity {CAPACITY})")
-    return cfg, gen, drops, bg, depth, tex, edges
+    return w.cfg, gen, w.drops, w.bg, w.depth, w.bank, w.edges
 
 
 def against_plain(tag, label, rungs, image_hw, tex_hw, n_planes):
@@ -640,7 +638,90 @@ def timing_phase(cfg, gen, drops, bg, depth, tex, edges, rungs, smi):
                      lambda: fused_raster.fused_raster_composite(
                          rungs, cfg.image_hw, tex_hw), 20)
     phase(f"[timing] all rungs, kernel ms by image tile (* in use): {sweep}")
-    return dict(ms=kernel_ms, plain_ms=plain_ms)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, imgs=imgs)
+
+
+def bench_phase(dev, smi, timing_imgs):
+    """The bench's FITTED=1 path in this process: A with the ladder
+    fitted to its drops, its guard render with the counts set to 0 just
+    before, and the raster kernel against plain on that render's rungs.
+    Then ``python -m raintpu_torch.bench`` in a process of its own, with
+    A's defaults and with FITTED=1: exit 0, a JSON line last with
+    positive rates, one raster and one blur launch in its guard render,
+    this card's name, and the hand ladder or the one fitted here.
+    Returns the fitted path's launches by kind and its kernel error."""
+    fit = rbench.fitted(rbench.workload(dev))
+    cfg = fit.cfg
+    reset_counts()
+    mass, _ = rbench.guard(fit)
+    torch.cuda.synchronize()
+    carried = dict(fused_raster.fused_raster_composite.carried)
+    k1, k2, k3 = launch_kinds(carried)
+    k4 = blur_kernel.separable_blur.launches
+    phase(f"[bench] fitted ladder {_kind_ladder(cfg.raster)}; guard render "
+          f"mask mass {mass:.1f}, raster launches by the windows each "
+          f"carried {carried}, blur launches {k4}")
+
+    _, env_photo, _ = frame.frame_background(fit.bg, fit.depth, cfg)
+    params, _ = frame.drop_fused_params(
+        env_photo, fit.drops, fit.bank, fit.edges, cfg,
+        generator=frame_generator(bench_suite.DRAW_SEED, 0, dev))
+    rungs = frame.kernel_rungs(params, cfg)
+    tex_hw = tuple(fit.bank.raw.shape[1:])
+    err = against_plain("bench", "fitted ladder, all rungs", rungs,
+                        cfg.image_hw, tex_hw, N_PLANES)
+    first = fused_raster.fused_raster_composite(rungs, cfg.image_hw, tex_hw)
+    second = fused_raster.fused_raster_composite(rungs, cfg.image_hw, tex_hw)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError("[bench] fitted ladder: two launches differ")
+    ms = event_ms(lambda: fused_raster.fused_raster_composite(
+        rungs, cfg.image_hw, tex_hw), 10)
+    plain = event_ms(lambda: fused_raster.fused_raster_plain(
+        rungs, cfg.image_hw, tex_hw), 1)
+    bnd, by, px = raster_bound(rungs, cfg.image_hw, N_PLANES)
+    phase(f"[bench] fitted ladder: two launches bit-identical; kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
+          f"{px} window px), {ms / bnd:.2f}x the bound, on {smi}")
+
+    env = {k: v for k, v in os.environ.items() if k not in rbench.KNOBS}
+    ladders = {"defaults": [[b.ph, b.pw, b.radius, b.capacity]
+                            for b in stage_profile.HAND_LADDER],
+               "fitted": rbench.ladder(cfg)}
+    for label, knobs in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "raintpu_torch.bench"], cwd=REPO_DIR,
+            env={**env, **knobs}, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        for line in lines[:-1]:
+            phase(f"[bench] {label}: {line}")
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"[bench] {label} exited "
+                                 f"{proc.returncode}:\n{proc.stdout}\n"
+                                 f"{proc.stderr[-4000:]}")
+        rec = json.loads(lines[-1])
+        phase(f"[bench] {label} ({wall:.2f} s): {lines[-1]}")
+        phase(f"[bench] {label}: value {rec['value']} and steady_state "
+              f"{rec['steady_state']} images/s beside [timing]'s render "
+              f"{timing_imgs:.2f} images/s (information); on {smi}")
+        if not (rec["value"] > 0 and rec["steady_state"] > 0):
+            raise AssertionError(f"[bench] {label}: rates {rec['value']}, "
+                                 f"{rec['steady_state']}")
+        if rec["launches"] != {"raster": 1, "blur": 1}:
+            raise AssertionError(f"[bench] {label}: launches "
+                                 f"{rec['launches']}, not 1 and 1")
+        if rec["device"] != smi:
+            raise AssertionError(f"[bench] {label}: device "
+                                 f"{rec['device']!r}, not {smi!r}")
+        if rec["ladder"] != ladders[label]:
+            raise AssertionError(f"[bench] {label}: ladder {rec['ladder']}"
+                                 f", not {ladders[label]}")
+    multi = any(tpu_tiles(*r.patch_hw) > 1 for r in rungs)
+    return dict(k1=k1, k2=k2, k3=k3, k4=k4, max_abs_err=err,
+                multi_err=err if multi else 0.0)
 
 
 def library_blur(x, taps_t, r):
@@ -2652,6 +2733,7 @@ def main() -> None:
     rungs, max_err, all_err = timed(kernel_phase, *data)
     launches, blur_launches, tex_idx = timed(render_phase, *data)
     k1 = timed(timing_phase, *data, rungs, smi)
+    bench_fitted = timed(bench_phase, dev, smi, k1["imgs"])
     k1_bound, k1_by, k1_px = raster_bound(rungs, (H, W), 5)
     phase(f"[timing] all rungs: bound {k1_bound:.4f} ms ({k1_by}; {k1_px} "
           "window px)")
@@ -2692,14 +2774,17 @@ def main() -> None:
                   plain_ms=k1["plain_ms"], bound_ms=k1_bound,
                   bound_by=k1_by, library_ms=None)
 
-    def by_path(kind, bench, one_rank, golden_launches, suite_launches,
+    def by_path(kind, render_a, one_rank, golden_launches, suite_launches,
                 **more):
-        """Launches of the bench render, the online CLI run, the offline
-        CLI run, the regimes' renders, the nuScenes CLI run, the
-        one-rank sharded render, the golden render of A, the suite's
-        five configurations and the two wide CLI runs that carried
-        ``kind`` (and ``more``), and their sum."""
-        paths = {"bench": bench, "cli": cli_launches[kind],
+        """Launches of [render]'s render of A, the bench's fitted guard
+        render, the online CLI run, the offline CLI run, the regimes'
+        renders, the nuScenes CLI run, the one-rank sharded render, the
+        golden render of A, the suite's five configurations and the two
+        wide CLI runs that carried ``kind`` (and ``more``), and their
+        sum."""
+        paths = {"render_a": render_a,
+                 "bench_fitted": bench_fitted[kind],
+                 "cli": cli_launches[kind],
                  "offline": offline_launches[kind],
                  "regimes": regimes[kind], "nuscenes": nusc[kind],
                  "sharded": one_rank, "golden": golden_launches,
@@ -2714,17 +2799,17 @@ def main() -> None:
         {**raster, "replaces": KERNEL_REPLACES,
          **by_path("k1", launches, sharded["launches"],
                    golden["launches"][0], suite["kinds"][0]),
-         "max_abs_err": max(max_err, regimes["max_abs_err"],
-                            rig["max_abs_err"], nusc_raster["max_abs_err"],
-                            pair["max_abs_err"], suite["max_abs_err"],
-                            wide["max_abs_err"]),
+         "max_abs_err": max(max_err, bench_fitted["max_abs_err"],
+                            regimes["max_abs_err"], rig["max_abs_err"],
+                            nusc_raster["max_abs_err"], pair["max_abs_err"],
+                            suite["max_abs_err"], wide["max_abs_err"]),
          "ms": k1["ms"]},
         {**raster, "name": "fused_raster_multitile",
          "replaces": K2_REPLACES,
          **by_path("k2", 0, 0, 0, suite["kinds"][1]),
-         "max_abs_err": max(k2["max_abs_err"], regimes["multi_err"],
-                            rig["multi_err"], nusc_raster["multi_err"],
-                            wide["multi_err"]),
+         "max_abs_err": max(k2["max_abs_err"], bench_fitted["multi_err"],
+                            regimes["multi_err"], rig["multi_err"],
+                            nusc_raster["multi_err"], wide["multi_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"]},
         {**raster, "name": "fused_raster_resident",
@@ -2732,6 +2817,7 @@ def main() -> None:
          **by_path("k3", launches, sharded["launches"],
                    golden["launches"][0], suite["kinds"][2]),
          "max_abs_err": max(all_err, k2["all_rungs_err"],
+                            bench_fitted["max_abs_err"],
                             regimes["max_abs_err"], rig["max_abs_err"],
                             nusc_raster["max_abs_err"], pair["max_abs_err"],
                             suite["max_abs_err"], wide["max_abs_err"]),

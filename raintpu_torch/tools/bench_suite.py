@@ -18,7 +18,7 @@ a step took), which ``main`` drops before printing.
 Every configuration runs at the JAX suite's sizes: its intensities,
 batches, image sizes and capacity rules. Each step's scalar is summed on
 the device over the timed loop and read once at its end, after a
-``torch.cuda.synchronize()``; see :func:`_timed`. The numbers are
+``torch.cuda.synchronize()``; see :func:`timed`. The numbers are
 information, not a benchmark's cells.
 
 The port's simulator draws from ``torch.Generator`` s, so its drops
@@ -45,7 +45,7 @@ from raintpu_torch import resolve_device
 from raintpu_torch.data.textures import (TextureBank,
                                          procedural_streak_database,
                                          texture_bank)
-from raintpu_torch.ops.rasterize import fit_raster_config
+from raintpu_torch.ops.rasterize import RasterConfig, fit_raster_config
 from raintpu_torch.parallel import distributed
 from raintpu_torch.parallel import mesh as pmesh
 from raintpu_torch.particles.schema import DropBatch, compact_drop_batch
@@ -113,7 +113,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _timed(step, data, iters=6, perturb_ix=(1, 2, 3)):
+def timed(step, data, iters=6, perturb_ix=(1, 2, 3)):
     """Seconds per call of ``step(i, *data)``: one warm-up call, then
     one timed loop of ``iters`` calls.
 
@@ -147,16 +147,17 @@ def _timed(step, data, iters=6, perturb_ix=(1, 2, 3)):
 
 
 def _run(scene: Scene, step, data, iters, **kw) -> Run:
-    """``step`` on ``data`` through :func:`_timed`, kept as a Run."""
-    return Run(scene, step, data, _timed(step, data, iters, **kw))
+    """``step`` on ``data`` through :func:`timed`, kept as a Run."""
+    return Run(scene, step, data, timed(step, data, iters, **kw))
 
 
-def _assert_rain(out):
-    """Guard against the silent no-op render (zero rain mass) and
-    against bucket-capacity overflow (a fitted ladder that under-sizes
-    a rung must fail loudly, not drop drops)."""
+def assert_rain(out, min_mass: float = 1e-2) -> float:
+    """Guard against the silent no-op render (rain-mask mass not over
+    ``min_mass``) and against bucket-capacity overflow (a fitted ladder
+    that under-sizes a rung must fail loudly, not drop drops). Returns
+    the mass."""
     mass = float(out.rain_mask.sum())
-    if not mass > 1e-2:
+    if not mass > min_mass:
         raise AssertionError(f"no rain rendered (mask mass {mass})")
     overflow = float(out.overflow.sum())
     if overflow != 0:
@@ -164,22 +165,26 @@ def _assert_rain(out):
     return mass
 
 
-def _scene(drops: DropBatch, settings: RenderSettings, W: int, H: int,
-           fallrate: float, capacity: int, truncated: int,
-           sim_cfg: SimConfig, **cfg_kw) -> Scene:
+def build_scene(drops: DropBatch, settings: RenderSettings, W: int,
+                H: int, fallrate: float, capacity: int, truncated: int,
+                sim_cfg: SimConfig, raster: RasterConfig | None = None,
+                **cfg_kw) -> Scene:
     """Compact ``drops`` (B, N) to ``capacity``, fit a bucket ladder to
-    them, and make the W x H frames: bg and depth from RandomState(0),
-    on the drops' device. The cone photometry runs at the production
-    setting, cone_downsample 4, unless ``cfg_kw`` says otherwise."""
+    them unless ``raster`` gives one, and make the W x H frames: bg and
+    depth from RandomState(0), on the drops' device. The cone photometry
+    runs at the production setting, cone_downsample 4, unless ``cfg_kw``
+    says otherwise."""
     device = drops.valid.device
     B = drops.valid.shape[0]
     drops = compact_drop_batch(drops, capacity)
     db = procedural_streak_database()
     bank = texture_bank(db, device=device)
-    # The workload-fitted ladder: rungs and capacities from this
-    # configuration's own population (the overflow counters guard it).
-    raster = fit_raster_config(drops, tuple(bank.raw.shape[1:]), (W, H),
-                               settings)
+    if raster is None:
+        # The workload-fitted ladder: rungs and capacities from this
+        # configuration's own population (the overflow counters guard
+        # it).
+        raster = fit_raster_config(drops, tuple(bank.raw.shape[1:]),
+                                   (W, H), settings)
     cfg_kw.setdefault("cone_downsample", CONE_DOWNSAMPLE)
     cfg = frame.PipelineConfig(settings=settings, image_hw=(H, W),
                                fallrate=float(fallrate), raster=raster,
@@ -198,7 +203,9 @@ def _settings(W: int, H: int) -> RenderSettings:
     return RenderSettings(camera=CameraSettings(wh=(W, H), ccd_wh=(W, H)))
 
 
-def _full(B, v, device):
+def filled(B, v, device):
+    """A (B,) float32 tensor of ``v`` on ``device``: one simulation rate
+    per frame."""
     return torch.full((B,), float(v), dtype=torch.float32, device=device)
 
 
@@ -225,11 +232,11 @@ def _common(B, W, H, fallrate, capacity=None, settings=None, device=None,
     else:
         sim_cap = 2 * capacity
     sim_cfg = SimConfig.from_settings(settings, capacity=sim_cap)
-    rates = _full(B, fallrate, device)
+    rates = filled(B, fallrate, device)
     drops = simulate_frames(
         torch.Generator(device=device).manual_seed(SIM_SEED), sim_cfg,
-        rates, _full(B, 8.0, device),
-        _full(B, settings.camera.exposure_s, device), _full(B, 1.0, device))
+        rates, filled(B, 8.0, device),
+        filled(B, settings.camera.exposure_s, device), filled(B, 1.0, device))
     truncated = truncated_count(
         torch.Generator(device=device).manual_seed(SIM_SEED), sim_cfg,
         rates).sum()
@@ -242,8 +249,8 @@ def _common(B, W, H, fallrate, capacity=None, settings=None, device=None,
     elif most > capacity:
         raise AssertionError(
             f"render capacity truncates ({most}/{capacity})")
-    return _scene(drops, settings, W, H, fallrate, capacity, truncated,
-                  sim_cfg, **cfg_kw)
+    return build_scene(drops, settings, W, H, fallrate, capacity,
+                       truncated, sim_cfg, **cfg_kw)
 
 
 def _step_scalar(out, envmap: bool = False) -> torch.Tensor:
@@ -271,19 +278,20 @@ def render_step(cfg: frame.PipelineConfig, envmap: bool = False):
     return step
 
 
-def _data(scene: Scene):
+def step_args(scene: Scene):
+    """The arguments after ``i`` of :func:`render_step`'s step."""
     return (DRAW_SEED, scene.bg, scene.depth, scene.drops, scene.bank,
             scene.edges)
 
 
-def _checked(scene: Scene):
+def checked(scene: Scene, min_mass: float = 1e-2) -> float:
     """The scene rendered once (draws of step 0), checked for rain and
-    overflow."""
+    overflow by :func:`assert_rain`. Returns the rain-mask mass."""
     out = frame.render_frames(
         scene.bg, scene.depth, scene.drops, scene.bank, scene.edges,
         scene.cfg, generator=frame_generator(DRAW_SEED, 0,
                                              scene.bg.device))
-    _assert_rain(out)
+    return assert_rain(out, min_mass)
 
 
 def bench_kitti_sweep(device=None, B=12, W=1242, H=375,
@@ -294,8 +302,9 @@ def bench_kitti_sweep(device=None, B=12, W=1242, H=375,
     runs = []
     for fr in fallrates:
         scene = _common(B, W, H, fr, device=device)
-        _checked(scene)
-        runs.append(_run(scene, render_step(scene.cfg), _data(scene), iters))
+        checked(scene)
+        runs.append(_run(scene, render_step(scene.cfg), step_args(scene),
+                         iters))
     rate = len(fallrates) * B / sum(r.seconds for r in runs)
     return {"metric": "KITTI sweep {" + ",".join(f"{f:g}" for f in fallrates)
                       + "}mm/hr",
@@ -307,9 +316,9 @@ def bench_cityscapes_envmap(device=None, B=12, W=1024, H=512,
     """Cityscapes at render_scale 2 (1024x512) with the full-resolution
     envmap saved (config 3); the step pays for the whole envmap."""
     scene = _common(B, W, H, fallrate, device=device, save_envmap=True)
-    _checked(scene)
-    run = _run(scene, render_step(scene.cfg, envmap=True), _data(scene),
-               iters)
+    checked(scene)
+    run = _run(scene, render_step(scene.cfg, envmap=True),
+               step_args(scene), iters)
     return {"metric": f"Cityscapes {W}x{H} + envmap @{fallrate:g}mm/hr",
             "value": B / run.seconds, "unit": "images/s", "_detail": [run]}
 
@@ -329,19 +338,19 @@ def bench_nuscenes_6cam(device=None, B=6, W=1600, H=900, fallrate=100.0,
     def cameras():
         return [frame_generator(SIM_SEED, c, device) for c in range(B)]
 
-    rates = _full(B, fallrate, device)
+    rates = filled(B, fallrate, device)
     drops = simulate_frames_keyed(
-        cameras(), sim_cfg, rates, _full(B, 8.0, device),
-        _full(B, settings.camera.exposure_s, device), _full(B, 1.0, device))
+        cameras(), sim_cfg, rates, filled(B, 8.0, device),
+        filled(B, settings.camera.exposure_s, device), filled(B, 1.0, device))
     trunc = int(truncated_counts(cameras(), sim_cfg, rates).sum())
     if trunc != 0:
         raise AssertionError(f"population truncated by {trunc} drops")
     counts = drops.count()
     render_cap = -(-int(counts.max()) // 128) * 128
-    scene = _scene(drops, settings, W, H, fallrate, render_cap, trunc,
-                   sim_cfg)
-    _checked(scene)
-    run = _run(scene, render_step(scene.cfg), _data(scene), iters)
+    scene = build_scene(drops, settings, W, H, fallrate, render_cap,
+                        trunc, sim_cfg)
+    checked(scene)
+    run = _run(scene, render_step(scene.cfg), step_args(scene), iters)
     rate = B / run.seconds
     dpf = float(counts.float().mean())
     return {"metric": f"nuScenes {B}x{W}x{H} rig @{fallrate:g}mm/hr, FULL "
@@ -360,9 +369,9 @@ def bench_online(device=None, B=12, W=1242, H=375, fallrate=25.0,
     sim_cfg = scene.sim_cfg
 
     def simulate(gen):
-        return simulate_frames(gen, sim_cfg, _full(B, fallrate, device),
-                               _full(B, 8.0, device),
-                               _full(B, 2e-3, device), _full(B, 1.0, device))
+        return simulate_frames(gen, sim_cfg, filled(B, fallrate, device),
+                               filled(B, 8.0, device),
+                               filled(B, 2e-3, device), filled(B, 1.0, device))
 
     drops0 = simulate(torch.Generator(device=device).manual_seed(
         ONLINE_SEED))
@@ -377,7 +386,7 @@ def bench_online(device=None, B=12, W=1242, H=375, fallrate=25.0,
             simulate(frame_generator(ONLINE_SEED, i, device)), cap)
         return render(i, seed, bg, depth, drops, bank, edges)
 
-    _assert_rain(frame.render_frames(
+    assert_rain(frame.render_frames(
         scene.bg, scene.depth, drops0, scene.bank, scene.edges, scene.cfg,
         generator=frame_generator(DRAW_SEED, 0, device)))
     # The drops are simulated in the step, keyed by i: only bg and depth
@@ -422,7 +431,7 @@ def bench_sharded(device=None, B=48, W=1242, H=375, fallrate=10.0,
                 generator=frame_generator(seed, i, device))
             return _step_scalar(out)
 
-        _assert_rain(pmesh.render_frames_sharded(
+        assert_rain(pmesh.render_frames_sharded(
             mesh, *data[1:], scene.cfg,
             generator=frame_generator(DRAW_SEED, 0, device)))
         run = _run(scene, step, data, iters)

@@ -44,23 +44,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from raintpu_torch import resolve_device
-from raintpu_torch.data.textures import (procedural_streak_database,
-                                         texture_bank)
+from raintpu_torch import bench, resolve_device
 from raintpu_torch.ops import fused_raster
 from raintpu_torch.ops.fused_raster import N_PLANES, RasterRung
-from raintpu_torch.ops.rasterize import RasterConfig
-from raintpu_torch.particles.schema import compact_drop_batch
-from raintpu_torch.physics.simulator import SimConfig, simulate_frames
 from raintpu_torch.render import frame
-from raintpu_torch.render.camera import CameraSettings, RenderSettings
-from raintpu_torch.tools.stage_profile import (CONE_DOWNSAMPLE, HAND_LADDER,
-                                               card_name)
+from raintpu_torch.tools.stage_profile import card_name
 
-B = 48
-H, W = 375, 1242
-SIM_CAPACITY = 512
-CAPACITY = 320
+B = bench.BATCH
 ITERS = 30
 # Windows of ITERS launches per time; their median is kept (a window of
 # short launches right after another variant's varied by 2x).
@@ -110,40 +100,18 @@ def raster_bound(rungs, image_hw, n_planes):
     return bound_ms(ops, nbytes) + (px,)
 
 
-def workload(fallrate: float = 10.0, device=None, batch: int = B,
-             hw=(H, W)) -> dict:
-    """Workload A's kernel operands on ``device`` (None: the card): the
-    config, the rungs of one prep pass and the texture canvas."""
+def workload(fallrate: float = 10.0, device=None) -> dict:
+    """Workload A's kernel operands on ``device`` (None: the card), A as
+    the headline bench builds it: the config, the rungs of one prep
+    pass and the texture canvas."""
     dev = resolve_device(device)
-    h, w = hw
-    settings = RenderSettings(camera=CameraSettings())   # KITTI defaults
-    cfg = frame.PipelineConfig(
-        settings=settings, image_hw=(h, w), fallrate=fallrate,
-        raster=RasterConfig(buckets=HAND_LADDER),
-        cone_downsample=CONE_DOWNSAMPLE)
-    sim_cfg = SimConfig.from_settings(settings, capacity=SIM_CAPACITY)
-
-    def full(v):
-        return torch.full((batch,), float(v), dtype=torch.float32,
-                          device=dev)
-
-    drops = simulate_frames(torch.Generator(device=dev).manual_seed(0),
-                            sim_cfg, full(fallrate), full(8.0),
-                            full(settings.camera.exposure_s), full(1.0))
-    drops = compact_drop_batch(drops, CAPACITY)
-    rng = np.random.RandomState(0)
-    bg = torch.as_tensor(rng.rand(batch, h, w, 3).astype(np.float32),
-                         device=dev)
-    depth = torch.as_tensor(
-        (rng.rand(batch, h, w) * 60 + 3).astype(np.float32), device=dev)
-    db = procedural_streak_database()
-    tex = texture_bank(db, device=dev)
-    _, env_photo, _ = frame.frame_background(bg, depth, cfg)
+    w = bench.workload(dev, fallrate=fallrate)
+    _, env_photo, _ = frame.frame_background(w.bg, w.depth, w.cfg)
     params, _ = frame.drop_fused_params(
-        env_photo, drops, tex, torch.as_tensor(db.bin_edges, device=dev),
-        cfg, generator=torch.Generator(device=dev).manual_seed(1))
-    return dict(cfg=cfg, rungs=frame.kernel_rungs(params, cfg),
-                tex_hw=tuple(tex.raw.shape[1:]))
+        env_photo, w.drops, w.bank, w.edges, w.cfg,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    return dict(cfg=w.cfg, rungs=frame.kernel_rungs(params, w.cfg),
+                tex_hw=tuple(w.bank.raw.shape[1:]))
 
 
 def pad_rung(rung: RasterRung, cap: int) -> RasterRung:

@@ -199,10 +199,13 @@ def test_assert_rain_raises(mask, overflow, words):
         rain_mask=torch.full((1, 4, 4), mask),
         overflow=torch.tensor([[0, overflow]], dtype=torch.int32))
     with pytest.raises(AssertionError, match=words):
-        bs._assert_rain(out)
+        bs.assert_rain(out)
     ok = types.SimpleNamespace(rain_mask=torch.full((1, 4, 4), 1.0),
                                overflow=torch.zeros((1, 2), dtype=torch.int32))
-    assert bs._assert_rain(ok) == 16.0
+    assert bs.assert_rain(ok) == 16.0
+    # The bar is the caller's: the mass must lie above it.
+    with pytest.raises(AssertionError, match="no rain rendered"):
+        bs.assert_rain(ok, min_mass=16.0)
 
 
 def _fake_drops():
@@ -229,7 +232,7 @@ def test_timed_perturbs_floats_by_step(iters, perturb_ix):
         calls.append((i, seed, x, dr, n, s))
         return x.sum() + 1.0
 
-    sec = bs._timed(step, data, iters=iters, perturb_ix=perturb_ix)
+    sec = bs.timed(step, data, iters=iters, perturb_ix=perturb_ix)
     assert sec > 0
     assert len(calls) == iters + 1
     assert [c[0] for c in calls] == [0] + list(range(iters))
@@ -248,7 +251,7 @@ def test_timed_perturbs_floats_by_step(iters, perturb_ix):
 
 def test_timed_rejects_nan():
     with pytest.raises(AssertionError, match="NaN"):
-        bs._timed(lambda i, x: x.sum() * float("nan"), (torch.ones(2),),
+        bs.timed(lambda i, x: x.sum() * float("nan"), (torch.ones(2),),
                   iters=2, perturb_ix=(0,))
 
 

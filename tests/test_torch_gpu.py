@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from raintpu_torch import bench
 from raintpu_torch.data.textures import (procedural_streak_database,
                                          texture_bank)
 from raintpu_torch.ops import blur_kernel
@@ -708,3 +709,13 @@ def test_knockout_variant_builds_and_launches(cuda, ablate):
 @pytest.mark.gpu
 def test_gpu_selfcheck_passes(cuda):
     assert gpu_selfcheck.main([]) == 0
+
+
+@pytest.mark.gpu
+def test_bench_guard_launches_each_kernel_once(cuda):
+    """The headline bench's guard render of workload A at its defaults
+    launches the raster kernel once and the blur kernel once (its rates
+    and ladder are chip_smoke's [bench] phase's to check)."""
+    mass, launches = bench.guard(bench.workload(cuda))
+    assert launches == {"raster": 1, "blur": 1}
+    assert mass > bench.MIN_MASK_MASS

@@ -32,7 +32,8 @@ _SCRIPT = textwrap.dedent("""
         raintpu_torch.__path__, "raintpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    for name in ("raintpu_torch.cli", "raintpu_torch.render.pipeline",
+    for name in ("raintpu_torch.cli", "raintpu_torch.bench",
+                 "raintpu_torch.render.pipeline",
                  "raintpu_torch.render.online",
                  "raintpu_torch.ops.blur_kernel",
                  "raintpu_torch.particles.xml_io",

@@ -71,6 +71,34 @@ def test_wide_envmap_matches_raintpu(rng, hw, env_w):
         close(got[b], jenv.generate_envmap(jnp.asarray(bg[b]), geom))
 
 
+# A known difference inside the reference: raintpu's render job reads
+# the envmap's rows through the jitted _central_source_indices, and
+# XLA's fused tan and sqrt round differently from eager evaluation. A
+# row coordinate on a rounding tie (within 1e-4 of a half-integer in
+# float64) then lands one row off: 2 / 14 / 38 entries of the central
+# cylinder at these sizes with the jax installed when this was written.
+# The port computes the map eagerly on the CPU, as raintpu's eager map.
+@pytest.mark.parametrize("hw", [(375, 1242), (900, 1600), (1016, 2040)])
+def test_envmap_index_map_is_raintpus_eager_map(hw):
+    geom = jenv.envmap_geometry(*hw, FOCAL_MM)
+    got = tenv._host_source_indices(tenv.envmap_geometry(*hw, FOCAL_MM),
+                                    torch.float32)
+    for g, want in zip(got, jenv._source_indices(geom)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want))
+
+    jit_rows = np.asarray(jax.jit(jenv._central_source_indices,
+                                  static_argnums=0)(geom)[0])
+    b, wc = geom.border, geom.cyl_width
+    rows = got[0].numpy()[:, b:b + wc]
+    r, c = np.nonzero(rows != jit_rows)
+    np.testing.assert_array_equal(np.abs(rows - jit_rows)[r, c], 1)
+    h, w = hw
+    f = float(geom.focal_env)
+    dc = f * np.tan((c + geom.min_x - w // 2) / f)
+    coord = (r - h // 2) * np.sqrt(dc ** 2 + f * f) / f + h // 2
+    assert np.all(np.abs(coord - np.floor(coord) - 0.5) < 1e-4), coord
+
+
 def test_wide_batched_fog_matches_raintpu(rng):
     """The fog stage of a (2, 16, 3100) batch: its 25-tap blur runs the
     slab path on W on both sides."""
