@@ -63,6 +63,18 @@ Phases:
      ``torch.zeros`` of the same planes;
  10. determinism: two launches on the bench rungs and on the default
      ladder's rungs give the same bits;
+ 10+. bf16: bfloat16 field planes (PipelineConfig.fields_dtype): A
+     built with fields_dtype "bfloat16" by the bench, its guard render
+     (one raster and one blur launch, counted as the path "bench_bf16"),
+     A's bfloat16 render against its float32 render (rain mask within
+     5e-3, float32 outputs), the kernel against plain in bfloat16 on A's
+     four rungs and on B's default ladder (its multi-tile rungs alone
+     too), at 5 and 8 planes (every value within two bfloat16 units, at
+     least 99.9% of the non-zero values bit-equal, two launches
+     bit-identical), K1's ms in float32 and bfloat16 on A and B beside
+     t0 (every slot empty) and the bound, and ``python -m
+     raintpu_torch.bench`` with FIELDS_DTYPE=bfloat16 as [bench] runs
+     it;
  10a. kernel tools: the JAX package's kernel tools on the card — every
      knockout variant of the raster kernel built from the checkout
      (``RAINTPU_ABLATE``), ``ablate=""`` bit-identical to the production
@@ -167,10 +179,11 @@ with one shared load per tap for the blur) and, for the raster kernel,
 its previous design's (row chunks, one launch per rung; PERF.md section
 6). Each phase's wall time is printed after it.
 
-Prints a kernels JSON line (launches by path: bench, cli, offline,
-regimes, nuscenes, the one-rank sharded render, the golden render of A
-(raster 0, blur 1), the suite's five configurations, the two wide CLI
-runs, and depth for the blur;
+Prints a kernels JSON line (launches by path: bench, bench_bf16, cli,
+offline, regimes, nuscenes, the one-rank sharded render, the golden
+render of A (raster 0, blur 1), the suite's five configurations, the
+two wide CLI runs, and depth for the blur; the raster kernel with
+bfloat16 planes as an entry of its own, fused_raster_bf16;
 the two-rank and farm children launch in processes of their own and
 are not counted), then ``{"ok": true, "device": ...}`` as the last
 line. Any failing phase raises and the script exits non-zero.
@@ -249,15 +262,25 @@ REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 BENCH_RUNS = (("defaults", {}), ("fitted", {"FITTED": "1"}))
 BENCH_TIMEOUT_S = 300
 
+# [bf16]: bfloat16 field planes (PipelineConfig.fields_dtype). The kernel
+# against its plain version: every value within two bfloat16 units
+# (BF16_RTOL * |v| + BF16_ATOL) and at least BF16_MIN_EQUAL of the
+# non-zero values bit-equal (their float32 contributions differ in the
+# last bits, as KERNEL_ATOL allows, which moves a rounding now and
+# then). A's bfloat16 render against its float32 render: the JAX
+# package's own bar (tests/test_pallas_batched.py). Timing: the median
+# of BF16_REPS windows of kernel_anatomy.ITERS launches.
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL = 1e-6
+BF16_MIN_EQUAL = 0.999
+BF16_MASK_ATOL = 5e-3
+BF16_REPS = 5
+
 # The online CLI path: customdb at KITTI size, the default ladder.
 CLI_FRAMES = 16
 CLI_BATCH = 8
 CLI_FALLRATE = 25
 CLI_CAPACITY = 2048       # the CLI's --drop_capacity default
-# The JAX package's window plan (fused_kernel.plan_window): windows over
-# MAX_SLAB_AREA run in row tiles, the multi-tile kernel body (K2).
-MAX_SLAB_AREA = 80_000
-
 # The nuScenes path: one second of CAM_FRONT (12 frames at 12 Hz) at
 # 1600x900 through the online CLI at 100 mm/hr, batches of 6 (the
 # 6-camera rig's batch); LiDAR sweeps of a 32-beam LIDAR_TOP's size.
@@ -403,11 +426,9 @@ def reset_counts() -> None:
 
 def tpu_tiles(ph: int, pw: int) -> int:
     """Row tiles of the JAX package's window plan for a (ph, pw) rung
-    (fused_kernel.plan_window, f32 planes): 1 is the single-tile body
+    (fused_raster.plan_window, f32 planes): 1 is the single-tile body
     (K1), more is the multi-tile body (K2)."""
-    ph2 = -(-(ph + 8) // 8) * 8
-    pw2 = -(-(pw + 128) // 128) * 128
-    return max(1, -(-(ph2 * pw2) // MAX_SLAB_AREA))
+    return fused_raster.plan_window(ph, pw)[3]
 
 
 def event_ms(fn, reps):
@@ -684,44 +705,61 @@ def bench_phase(dev, smi, timing_imgs):
           f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
           f"{px} window px), {ms / bnd:.2f}x the bound, on {smi}")
 
-    env = {k: v for k, v in os.environ.items() if k not in rbench.KNOBS}
-    ladders = {"defaults": [[b.ph, b.pw, b.radius, b.capacity]
-                            for b in stage_profile.HAND_LADDER],
-               "fitted": rbench.ladder(cfg)}
+    ladders = {"defaults": HAND_LADDER, "fitted": rbench.ladder(cfg)}
     for label, knobs in BENCH_RUNS:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "raintpu_torch.bench"], cwd=REPO_DIR,
-            env={**env, **knobs}, capture_output=True, text=True,
-            timeout=BENCH_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        lines = proc.stdout.splitlines()
-        for line in lines[:-1]:
-            phase(f"[bench] {label}: {line}")
-        if proc.returncode != 0 or not lines:
-            raise AssertionError(f"[bench] {label} exited "
-                                 f"{proc.returncode}:\n{proc.stdout}\n"
-                                 f"{proc.stderr[-4000:]}")
-        rec = json.loads(lines[-1])
-        phase(f"[bench] {label} ({wall:.2f} s): {lines[-1]}")
-        phase(f"[bench] {label}: value {rec['value']} and steady_state "
-              f"{rec['steady_state']} images/s beside [timing]'s render "
-              f"{timing_imgs:.2f} images/s (information); on {smi}")
-        if not (rec["value"] > 0 and rec["steady_state"] > 0):
-            raise AssertionError(f"[bench] {label}: rates {rec['value']}, "
-                                 f"{rec['steady_state']}")
-        if rec["launches"] != {"raster": 1, "blur": 1}:
-            raise AssertionError(f"[bench] {label}: launches "
-                                 f"{rec['launches']}, not 1 and 1")
-        if rec["device"] != smi:
-            raise AssertionError(f"[bench] {label}: device "
-                                 f"{rec['device']!r}, not {smi!r}")
-        if rec["ladder"] != ladders[label]:
-            raise AssertionError(f"[bench] {label}: ladder {rec['ladder']}"
-                                 f", not {ladders[label]}")
+        bench_run("bench", label, knobs, ladders[label], smi, timing_imgs)
     multi = any(tpu_tiles(*r.patch_hw) > 1 for r in rungs)
     return dict(k1=k1, k2=k2, k3=k3, k4=k4, max_abs_err=err,
                 multi_err=err if multi else 0.0)
+
+
+# The bench's hand ladder as its JSON line gives it.
+HAND_LADDER = [[b.ph, b.pw, b.radius, b.capacity]
+               for b in stage_profile.HAND_LADDER]
+
+
+def bench_run(tag, label, knobs, ladder, smi, timing_imgs):
+    """``python -m raintpu_torch.bench`` with ``knobs`` in a process of
+    its own: exit 0, a JSON line last with positive rates, one raster
+    and one blur launch in its guard render, this card's name, the
+    ladder ``ladder`` and the field dtype of FIELDS_DTYPE. Returns the
+    line."""
+    env = {k: v for k, v in os.environ.items() if k not in rbench.KNOBS}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "raintpu_torch.bench"], cwd=REPO_DIR,
+        env={**env, **knobs}, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        phase(f"[{tag}] {label}: {line}")
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"[{tag}] {label} exited "
+                             f"{proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}")
+    rec = json.loads(lines[-1])
+    phase(f"[{tag}] {label} ({wall:.2f} s): {lines[-1]}")
+    phase(f"[{tag}] {label}: value {rec['value']} and steady_state "
+          f"{rec['steady_state']} images/s beside [timing]'s render "
+          f"{timing_imgs:.2f} images/s (information); on {smi}")
+    if not (rec["value"] > 0 and rec["steady_state"] > 0):
+        raise AssertionError(f"[{tag}] {label}: rates {rec['value']}, "
+                             f"{rec['steady_state']}")
+    if rec["launches"] != {"raster": 1, "blur": 1}:
+        raise AssertionError(f"[{tag}] {label}: launches "
+                             f"{rec['launches']}, not 1 and 1")
+    if rec["device"] != smi:
+        raise AssertionError(f"[{tag}] {label}: device "
+                             f"{rec['device']!r}, not {smi!r}")
+    if rec["ladder"] != ladder:
+        raise AssertionError(f"[{tag}] {label}: ladder {rec['ladder']}, "
+                             f"not {ladder}")
+    dtype = knobs.get("FIELDS_DTYPE", "float32")
+    if rec["fields_dtype"] != dtype:
+        raise AssertionError(f"[{tag}] {label}: fields_dtype "
+                             f"{rec['fields_dtype']!r}, not {dtype!r}")
+    return rec
 
 
 def library_blur(x, taps_t, r):
@@ -922,6 +960,151 @@ def determinism_phase(bench_rungs, cli_rungs, tex_hw_bench, tex_hw_cli):
               f"(max difference {(first - second).abs().max().item():.3g})")
         if not same:
             raise AssertionError(f"two launches on the {name} differ")
+
+
+def bf16_against_plain(label, rungs, image_hw, tex_hw, n_planes):
+    """The kernel with bfloat16 planes against its plain version on one
+    call over ``rungs``: one launch, bfloat16 planes, a second launch
+    bit-identical, every value within BF16_RTOL * |v| + BF16_ATOL, and
+    at least BF16_MIN_EQUAL of the non-zero values bit-equal. Returns
+    the largest difference."""
+    bf16 = torch.bfloat16
+    fn = fused_raster.fused_raster_composite
+    before = fn.launches
+    got = fn(rungs, image_hw, tex_hw, n_planes, dtype=bf16)
+    launched = fn.launches - before
+    again = fn(rungs, image_hw, tex_hw, n_planes, dtype=bf16)
+    want = fused_raster.fused_raster_plain(rungs, image_hw, tex_hw,
+                                           n_planes, dtype=bf16)
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    lit = (g != 0) | (w != 0)
+    unequal = ((g != w) & lit).sum().item()
+    share = 1.0 - unequal / max(1, lit.sum().item())
+    bad = (err > BF16_RTOL * w.abs() + BF16_ATOL).sum().item()
+    drops = sum(int(r.n_valid.sum()) for r in rungs)
+    phase(f"[bf16] {label} ({n_planes} planes) drops {drops}: "
+          f"{lit.sum().item()} non-zero values, {unequal} not bit-equal "
+          f"(bit-equal {share:.6f}), max|kernel-plain| per plane "
+          f"{['%.3g' % e for e in err.amax(dim=(0, 2, 3)).tolist()]}, "
+          f"mass {w[:, 0].sum().item():.2f}; launches {launched}")
+    if got.dtype != bf16 or launched != 1:
+        raise AssertionError(f"[bf16] {label}: {got.dtype}, {launched} "
+                             "launches")
+    if not torch.equal(got, again):
+        raise AssertionError(f"[bf16] {label}: two launches differ")
+    if bad or share < BF16_MIN_EQUAL:
+        raise AssertionError(f"[bf16] {label}: {bad} values off by more "
+                             f"than two bfloat16 units, bit-equal share "
+                             f"{share:.6f} < {BF16_MIN_EQUAL}")
+    return err.max().item()
+
+
+def bf16_phase(dev, cli_rungs, cli_tex_hw, smi, timing_imgs):
+    """[bf16]: bfloat16 field planes. A with fields_dtype "bfloat16" as
+    the bench builds it (FIELDS_DTYPE=bfloat16): its guard render with
+    the counts set to 0 just before (the kernels line's bench_bf16
+    path), then against A's float32 render on the same drops and
+    texture picks (the rain mask within BF16_MASK_ATOL); the kernel
+    against plain in bfloat16 on A's four rungs and on B's default
+    ladder (its rungs 2-3 the multi-tile K2 windows), at 5 and 8 planes;
+    K1's ms on A and B in float32 and bfloat16, each beside t0 (every
+    n_valid 0: the plane store alone), with the bfloat16 plain ms and
+    bound; then ``python -m raintpu_torch.bench`` with
+    FIELDS_DTYPE=bfloat16 in a process of its own."""
+    w = rbench.workload(dev, fields_dtype="bfloat16")
+    reset_counts()
+    mass, _ = rbench.guard(w)
+    torch.cuda.synchronize()
+    carried = dict(fused_raster.fused_raster_composite.carried)
+    k1, k2, k3 = launch_kinds(carried)
+    k4 = blur_kernel.separable_blur.launches
+    phase(f"[bf16] A's guard render with bfloat16 planes: mask mass "
+          f"{mass:.1f}, raster launches by the windows each carried "
+          f"{carried}, blur launches {k4}")
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tex_idx = select_textures(w.drops, w.edges, gen)
+    args = (w.bg, w.depth, w.drops, w.bank, w.edges)
+    out16 = frame.render_frames(*args, w.cfg, tex_idx=tex_idx)
+    out32 = frame.render_frames(
+        *args, dataclasses.replace(w.cfg, fields_dtype="float32"),
+        tex_idx=tex_idx)
+    torch.cuda.synchronize()
+    dm = (out16.rain_mask - out32.rain_mask).abs()
+    di = (out16.rainy_image - out32.rainy_image).abs()
+    phase(f"[bf16] A bfloat16 against float32 render: rain mask max "
+          f"{dm.max().item():.3g} mean {dm.mean().item():.3g}, image max "
+          f"{di.max().item():.3g} (bar {BF16_MASK_ATOL:g}); outputs "
+          f"{out16.rain_mask.dtype}, {out16.rainy_image.dtype}")
+    if (out16.rain_mask.dtype != torch.float32
+            or out16.rainy_image.dtype != torch.float32):
+        raise AssertionError("[bf16] the render's outputs are not float32")
+    if not dm.max().item() <= BF16_MASK_ATOL:
+        raise AssertionError("[bf16] A's bfloat16 rain mask is off its "
+                             "float32 render")
+    if not out32.rain_mask.sum().item() > 1.0 or torch.equal(
+            out16.rain_mask, out32.rain_mask):
+        raise AssertionError("[bf16] no rain, or no rounding: the two "
+                             "renders are equal")
+
+    # A's rungs with the saturation rows, for 5 and 8 planes.
+    cfg = dataclasses.replace(w.cfg, compute_saturation_mask=True)
+    _, env_photo, _ = frame.frame_background(w.bg, w.depth, cfg)
+    params, _ = frame.drop_fused_params(env_photo, w.drops, w.bank, w.edges,
+                                        cfg, tex_idx=tex_idx)
+    rungs = frame.kernel_rungs(params, cfg)
+    tex_hw = tuple(w.bank.raw.shape[1:])
+    phase(f"[bf16] A's rungs {[r.patch_hw for r in rungs]} round the "
+          f"contribution first {[r.round_first for r in rungs]}; B's "
+          f"{[r.patch_hw for r in cli_rungs]}: "
+          f"{[r.round_first for r in cli_rungs]}")
+    err = max(bf16_against_plain(f"{label}, all rungs", rs, (H, W), hw,
+                                 n_planes)
+              for label, rs, hw in (("A", rungs, tex_hw),
+                                    ("B", cli_rungs, cli_tex_hw))
+              for n_planes in (N_PLANES, N_PLANES_SAT))
+    multi = [r for r in cli_rungs if tpu_tiles(*r.patch_hw) > 1]
+    multi_err = max(bf16_against_plain(f"B multi-tile rung {r.patch_hw}",
+                                       [r], (H, W), cli_tex_hw, N_PLANES_SAT)
+                    for r in multi)
+
+    times = {}
+    for label, rs, hw, n_planes in (("A", rungs, tex_hw, N_PLANES),
+                                    ("B", cli_rungs, cli_tex_hw,
+                                     N_PLANES_SAT)):
+        empty = [kernel_anatomy.cap_valid(r, 0) for r in rs]
+        for dtype in (torch.float32, torch.bfloat16, torch.bfloat16,
+                      torch.float32):
+            for what, operands in (("ms", rs), ("t0", empty)):
+                t = kernel_anatomy.launch_ms(
+                    operands, (H, W), hw, reps=BF16_REPS, n_planes=n_planes,
+                    dtype=dtype)
+                times.setdefault((label, dtype, what), []).append(t)
+        for dtype in (torch.float32, torch.bfloat16):
+            bnd, by, px = raster_bound(rs, (H, W), n_planes, dtype)
+            nbytes = kernel_anatomy.raster_bytes(rs, (H, W), n_planes, dtype)
+            ms, t0 = (times[(label, dtype, k)] for k in ("ms", "t0"))
+            times[(label, dtype, "bound")] = (bnd, by)
+            phase(f"[bf16] {label} {n_planes} planes {dtype}: kernel "
+                  f"{' / '.join('%.4f' % t for t in ms)} ms, t0 "
+                  f"{' / '.join('%.4f' % t for t in t0)} ms, bound "
+                  f"{bnd:.4f} ms ({by}; {px} window px; the bytes alone "
+                  f"{nbytes} B, "
+                  f"{kernel_anatomy.bound_ms(0.0, nbytes)[0]:.4f} ms); "
+                  f"on {smi}")
+    plain = event_ms(lambda: fused_raster.fused_raster_plain(
+        rungs, (H, W), tex_hw, N_PLANES, dtype=torch.bfloat16), 1)
+    phase(f"[bf16] A bfloat16 plain {plain:.4f} ms (slot by slot); on "
+          f"{smi}")
+
+    bench_run("bf16", "FIELDS_DTYPE=bfloat16",
+              {"FIELDS_DTYPE": "bfloat16"}, HAND_LADDER, smi, timing_imgs)
+    bound, by = times[("A", torch.bfloat16, "bound")]
+    return dict(k1=k1, k2=k2, k3=k3, k4=k4, max_abs_err=max(err, multi_err),
+                ms=float(np.median(times[("A", torch.bfloat16, "ms")])),
+                plain_ms=plain, bound_ms=bound, bound_by=by)
 
 
 def kernel_tools_phase(cfg, rungs, tex_hw, smi):
@@ -2744,6 +2927,7 @@ def main() -> None:
     k2 = timed(multitile_phase, dev, smi)
     timed(determinism_phase, rungs, k2["rungs"],
           tuple(data[5].raw.shape[1:]), k2["tex_hw"])
+    bf16 = timed(bf16_phase, dev, k2["rungs"], k2["tex_hw"], smi, k1["imgs"])
     timed(kernel_tools_phase, data[0], rungs, tuple(data[5].raw.shape[1:]),
           smi)
     golden = timed(golden_phase, data, tex_idx, k2.pop("inputs"), smi)
@@ -2777,13 +2961,14 @@ def main() -> None:
     def by_path(kind, render_a, one_rank, golden_launches, suite_launches,
                 **more):
         """Launches of [render]'s render of A, the bench's fitted guard
-        render, the online CLI run, the offline CLI run, the regimes'
-        renders, the nuScenes CLI run, the one-rank sharded render, the
-        golden render of A, the suite's five configurations and the two
-        wide CLI runs that carried ``kind`` (and ``more``), and their
-        sum."""
+        render, its guard render with bfloat16 planes, the online CLI
+        run, the offline CLI run, the regimes' renders, the nuScenes CLI
+        run, the one-rank sharded render, the golden render of A, the
+        suite's five configurations and the two wide CLI runs that
+        carried ``kind`` (and ``more``), and their sum."""
         paths = {"render_a": render_a,
                  "bench_fitted": bench_fitted[kind],
+                 "bench_bf16": bf16[kind],
                  "cli": cli_launches[kind],
                  "offline": offline_launches[kind],
                  "regimes": regimes[kind], "nuscenes": nusc[kind],
@@ -2822,6 +3007,11 @@ def main() -> None:
                             nusc_raster["max_abs_err"], pair["max_abs_err"],
                             suite["max_abs_err"], wide["max_abs_err"]),
          "ms": k1["ms"]},
+        {**raster, "name": "fused_raster_bf16", "replaces": KERNEL_REPLACES,
+         "launches": bf16["k1"], "launches_by_path": {
+             "bench_bf16": bf16["k1"]},
+         **{k: bf16[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by")}},
         {"name": "separable_blur", "route": "cuda", "source": BLUR_SOURCE,
          "replaces": BLUR_REPLACES,
          **by_path("k4", blur_launches, sharded["blur_launches"],

@@ -8,7 +8,8 @@ timed runs' spread, ``# fitted ladder: ...`` under FITTED=1) and, last,
 ONE JSON line::
 
     {"metric": ..., "value": N, "unit": "images/s", "steady_state": N,
-     "modal_blur": ..., "cone_downsample": ..., "ladder": [[ph, pw,
+     "fields_dtype": ..., "modal_blur": ..., "cone_downsample": ...,
+     "ladder": [[ph, pw,
      radius, capacity], ...], "device": ..., "launches": {"raster": n,
      "blur": n}}
 
@@ -38,13 +39,17 @@ Knobs (environment variables):
       the workload's shape;
   MODAL=0  modal blur off (RasterConfig.modal_blur);
   CDS      cone_downsample of the drop photometry (4; 1 is exact);
+  FIELDS_DTYPE  the field planes' dtype (PipelineConfig.fields_dtype):
+           float32 (the default) or bfloat16, whose raster kernel rounds
+           each drop's contribution into bfloat16 planes as the JAX
+           package's kernels do;
   FITTED=1 fit_raster_config's ladder, fitted to these drops, in place
            of the hand ladder (the modal-blur setting kept);
   DEVICE   cuda (the default) or cpu. Without a CUDA card, cuda is
            refused before any work and no JSON line is printed.
 
-The JAX bench's TPU kernel levers (PAIR, ROW_STRIP, NARROW, RESIDENT,
-FIELDS_DTYPE), their hardware gate and its backend probe have no
+The JAX bench's TPU kernel levers (PAIR, ROW_STRIP, NARROW, RESIDENT),
+their hardware gate and its backend probe have no
 counterpart: the port has one raster kernel and one blur kernel, built
 from ``raintpu_torch/csrc/`` before the first render, and ``launches``
 says that they ran. The drops come from the port's simulator on a
@@ -91,19 +96,20 @@ MIN_MASK_MASS = 1.0
 KERNELS = ("fused_raster", "separable_blur")
 # The environment variables the bench reads.
 KNOBS = ("HW", "BATCH", "CAPACITY", "FALLRATE", "ITERS", "MODAL", "CDS",
-         "FITTED", "DEVICE")
+         "FITTED", "DEVICE", "FIELDS_DTYPE")
 
 
 def workload(device, hw=HW, batch=BATCH, capacity=CAPACITY,
              fallrate=FALLRATE, modal_blur=True, cds=CDS,
-             generator=None) -> Scene:
+             generator=None, fields_dtype="float32") -> Scene:
     """Workload A on ``device``, as a bench_suite Scene: KITTI's camera,
     the hand ladder, drops simulated at capacity SIM_CAPACITY (rates
     ``fallrate`` mm/hr, 8 m deep, KITTI's exposure) from ``generator``
     (default: a fresh one seeded SIM_SEED) and packed to ``capacity``;
     frames and depth maps from ``RandomState(0)``; the procedural
-    texture bank. Its ``truncated`` replays the simulation's count
-    draw on a copy of the generator."""
+    texture bank; ``fields_dtype`` the field planes' dtype. Its
+    ``truncated`` replays the simulation's count draw on a copy of the
+    generator."""
     device = torch.device(device)
     H, W = hw
     settings = RenderSettings(camera=CameraSettings())  # KITTI defaults
@@ -121,7 +127,7 @@ def workload(device, hw=HW, batch=BATCH, capacity=CAPACITY,
     return build_scene(
         drops, settings, W, H, fallrate, capacity, truncated, sim_cfg,
         raster=RasterConfig(buckets=HAND_LADDER, modal_blur=modal_blur),
-        cone_downsample=cds)
+        cone_downsample=cds, fields_dtype=fields_dtype)
 
 
 def fitted(scene: Scene) -> Scene:
@@ -191,7 +197,8 @@ def main() -> dict:
     w = workload(device, (H, W), batch,
                  int(os.environ.get("CAPACITY", str(CAPACITY))), fallrate,
                  modal_blur=_env_flag("MODAL"),
-                 cds=int(os.environ.get("CDS", str(CDS))))
+                 cds=int(os.environ.get("CDS", str(CDS))),
+                 fields_dtype=os.environ.get("FIELDS_DTYPE", "float32"))
     drops_per_frame = float(w.drops.count().float().mean())
     if _env_flag("FITTED", "0"):
         w = fitted(w)
@@ -214,6 +221,7 @@ def main() -> dict:
         "value": round(honest, 2),
         "unit": "images/s",
         "steady_state": round(steady, 2),
+        "fields_dtype": w.cfg.fields_dtype,
         "modal_blur": w.cfg.raster.modal_blur,
         "cone_downsample": w.cfg.cone_downsample,
         "ladder": ladder(w.cfg),

@@ -40,7 +40,19 @@
 //     window, and the contributions of _plane_contribs, added to the
 //     tile's accumulators in shared memory with plain adds: P = 5 planes
 //     (alpha, log_att, add_rgb) or 8 (and clip(g * sat_rgb, 0, 1));
-//  4. writes: the tile's P planes, zeros included, a warp a row.
+//  4. writes: the tile's P planes, zeros included, a warp a row, as
+//     float32 or as bfloat16.
+//
+// bfloat16 planes (the JAX package's fields_dtype="bfloat16"): the tile
+// is still summed in float32 shared memory, but after each drop's add
+// the sum is rounded to bfloat16 (__float2bfloat16_rn), so the tile
+// always holds bfloat16 values and is stored as such. This is the JAX
+// kernels' rounding: acc = bf16(acc + c) on its full-window and
+// row-tile rungs (_accum_rows), and acc = bf16(acc + bf16(c)) on its
+// strip rungs (_accum_rows_strip casts the contribution to bfloat16
+// before it adds it), which the launch's round_first mask flags. The
+// per-pixel order of the adds, rung-major and slot-minor, is the JAX
+// kernels' order too, so every rounding happens where it happens there.
 //
 // Every pixel's sums run in rung-major, slot-minor order, the order of
 // the plain PyTorch version: two launches give bit-identical planes. The
@@ -54,7 +66,8 @@
 // the same order as a rank-by-rank loop.
 //
 // What bounds it on this card: the planes written once (447 MB for the
-// bench batch of 48 KITTI frames with 5 planes, 0.13 ms at 3.35 TB/s),
+// bench batch of 48 KITTI frames with 5 float32 planes, 0.13 ms at 3.35
+// TB/s; half of that in bfloat16),
 // and per-pixel arithmetic — about R*(My+Mx) multiply-adds of series, 5
 // divides, 4 tanh, 1 log and 2 cos per window pixel (some 300-1,000
 // FLOP) — whichever is larger for the call. What the design does about
@@ -95,6 +108,7 @@
 // render path loads, the compiler sees the production kernel's code and
 // nothing else.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -181,6 +195,7 @@ __device__ __forceinline__ float tanh_erf(float x) {
 struct Tile {
   int b, tx0, ty0, tx1, ty1, tile_w, tile_px, n_planes;
   float inv_th, inv_tw;
+  unsigned round_first;   // bfloat16 planes: bit r for rung r
 };
 
 // A warp stages list entry e: params, coefficients, header.
@@ -216,6 +231,27 @@ __device__ __forceinline__ void stage_drop(const RungTable& table, int e,
   }
 }
 
+// a += c in the tile's accumulator: a float32 add, or for bfloat16
+// planes (BF16) the sum rounded to bfloat16, with c rounded to bfloat16
+// first on the rungs flagged round_first.
+template <bool BF16>
+__device__ __forceinline__ void accum(float& a, float c, bool round_first) {
+  if constexpr (BF16) {
+    if (round_first) c = __bfloat162float(__float2bfloat16_rn(c));
+    a = __bfloat162float(__float2bfloat16_rn(a + c));
+  } else {
+    (void)round_first;
+    a += c;
+  }
+}
+
+// A tile sum as the planes store it (exact for bfloat16: the sums are
+// bfloat16 values already).
+__device__ __forceinline__ void store_value(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_value(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // Position of the n-th (from 0) set bit of mask, which has more than n.
 __device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
   int pos = 0;
@@ -232,13 +268,14 @@ __device__ __forceinline__ int nth_set_bit(unsigned mask, int n) {
 }
 
 // The block's threads add one staged drop's contributions over its
-// overlap with the tile into the accumulators; the drop's series has NR
-// ranks. The noplace knockout also takes the window's (ph, pw).
-template <int NR>
+// overlap with the tile into the accumulators (by accum<BF16>); the
+// drop's series has NR ranks. The noplace knockout also takes the
+// window's (ph, pw).
+template <int NR, bool BF16>
 __device__ __forceinline__ void accumulate_drop(const float* prm,
                                                 const int* hdr, int My,
-                                                int Mx, const Tile& t,
-                                                float* acc
+                                                int Mx, bool round_first,
+                                                const Tile& t, float* acc
 #if ABLATED(ABLATE_NOPLACE)
                                                 , int ph, int pw
 #endif
@@ -323,15 +360,19 @@ __device__ __forceinline__ void accumulate_drop(const float* prm,
     (void)tp;
 #else
     float* a = acc + (ly0 + dy) * t.tile_w + lx0 + dx;
-    a[0] += g;
-    a[tp] += logf(fmaxf(1.0f - g * prm[P_LO], LOG_EPS));
-    a[2 * tp] += g * prm[P_ADDR];
-    a[3 * tp] += g * prm[P_ADDG];
-    a[4 * tp] += g * prm[P_ADDB];
+    accum<BF16>(a[0], g, round_first);
+    accum<BF16>(a[tp], logf(fmaxf(1.0f - g * prm[P_LO], LOG_EPS)),
+                round_first);
+    accum<BF16>(a[2 * tp], g * prm[P_ADDR], round_first);
+    accum<BF16>(a[3 * tp], g * prm[P_ADDG], round_first);
+    accum<BF16>(a[4 * tp], g * prm[P_ADDB], round_first);
     if (with_sat) {
-      a[5 * tp] += fminf(fmaxf(g * prm[P_SATR], 0.0f), 1.0f);
-      a[6 * tp] += fminf(fmaxf(g * prm[P_SATG], 0.0f), 1.0f);
-      a[7 * tp] += fminf(fmaxf(g * prm[P_SATB], 0.0f), 1.0f);
+      accum<BF16>(a[5 * tp], fminf(fmaxf(g * prm[P_SATR], 0.0f), 1.0f),
+                  round_first);
+      accum<BF16>(a[6 * tp], fminf(fmaxf(g * prm[P_SATG], 0.0f), 1.0f),
+                  round_first);
+      accum<BF16>(a[7 * tp], fminf(fmaxf(g * prm[P_SATB], 0.0f), 1.0f),
+                  round_first);
     }
 #endif
   };
@@ -438,7 +479,7 @@ __device__ __forceinline__ void accumulate_drop(const float* prm,
 }
 
 // accumulate_drop for the drop's own rank R <= NRMAX.
-template <int NRMAX>
+template <int NRMAX, bool BF16>
 __device__ __forceinline__ void accumulate_any(const RungTable& table,
                                                const float* prm,
                                                const int* hdr, const Tile& t,
@@ -446,14 +487,17 @@ __device__ __forceinline__ void accumulate_any(const RungTable& table,
   const Rung& rg = table.rung[hdr[H_RUNG]];
   if constexpr (NRMAX > 0) {
     if (rg.R < NRMAX) {
-      accumulate_any<NRMAX - 1>(table, prm, hdr, t, acc);
+      accumulate_any<NRMAX - 1, BF16>(table, prm, hdr, t, acc);
       return;
     }
   }
+  const bool round_first = BF16 && ((t.round_first >> hdr[H_RUNG]) & 1u);
 #if ABLATED(ABLATE_NOPLACE)
-  accumulate_drop<NRMAX>(prm, hdr, rg.My, rg.Mx, t, acc, rg.ph, rg.pw);
+  accumulate_drop<NRMAX, BF16>(prm, hdr, rg.My, rg.Mx, round_first, t, acc,
+                               rg.ph, rg.pw);
 #else
-  accumulate_drop<NRMAX>(prm, hdr, rg.My, rg.Mx, t, acc);
+  accumulate_drop<NRMAX, BF16>(prm, hdr, rg.My, rg.Mx, round_first, t,
+                               acc);
 #endif
 }
 
@@ -464,7 +508,7 @@ __device__ __forceinline__ bool rects_meet(const int* a, const int* b) {
 
 // Draw the list's first n entries into the accumulators, in list order.
 // Every thread of the block calls it; it ends with a barrier.
-template <int NRMAX>
+template <int NRMAX, bool BF16>
 __device__ __forceinline__ void draw_list(const RungTable& table, const int* list, int n,
                           const Tile& t, float* acc, int* hdr,
                           float* staged, int drop_floats) {
@@ -487,7 +531,8 @@ __device__ __forceinline__ void draw_list(const RungTable& table, const int* lis
         __syncthreads();
         since = s;
       }
-      accumulate_any<NRMAX>(table, staged + s * drop_floats, hs, t, acc);
+      accumulate_any<NRMAX, BF16>(table, staged + s * drop_floats, hs, t,
+                                  acc);
     }
     __syncthreads();   // the round's adds are done; staging is free
   }
@@ -496,13 +541,18 @@ __device__ __forceinline__ void draw_list(const RungTable& table, const int* lis
 // NRMAX: the largest rank of the call's rungs, 4 or 8. The rank-4
 // instantiation is held to 64 registers, so that four blocks fit an SM
 // (five planes of a 2,048-px tile leave room for four); the rank-8 one to
-// 85, so that three fit (eight planes leave room for three).
-template <int NRMAX>
+// 85, so that three fit (eight planes leave room for three). Store: the
+// planes' type, float or __nv_bfloat16; with bfloat16 planes, bit r of
+// round_first rounds rung r's contributions before they are added. The
+// float instantiations never read round_first: they do the float32
+// kernel's operations in its order.
+template <int NRMAX, typename Store>
 __global__ void __launch_bounds__(THREADS, NRMAX <= 4 ? 4 : 3)
 fused_raster_kernel(const __grid_constant__ RungTable table, int n_rungs,
-                    float* __restrict__ planes, int H, int W, int n_planes,
+                    Store* __restrict__ planes, int H, int W, int n_planes,
                     float inv_th, float inv_tw, int tile_h, int tile_w,
-                    int tiles_x, int coef_floats) {
+                    int tiles_x, int coef_floats, unsigned round_first) {
+  constexpr bool BF16 = sizeof(Store) == 2;
   extern __shared__ float smem[];
   Tile t;
   t.b = blockIdx.y;
@@ -515,6 +565,7 @@ fused_raster_kernel(const __grid_constant__ RungTable table, int n_rungs,
   t.n_planes = n_planes;
   t.inv_th = inv_th;
   t.inv_tw = inv_tw;
+  t.round_first = round_first;
 
   float* acc = smem;                                       // P * tile_px
   int* list = reinterpret_cast<int*>(acc + n_planes * t.tile_px);
@@ -589,39 +640,42 @@ fused_raster_kernel(const __grid_constant__ RungTable table, int n_rungs,
     n_list += step;
     __syncthreads();   // the list holds this step; warp_n is free
     if (n_list > LIST_CAP - THREADS) {
-      draw_list<NRMAX>(table, list, n_list, t, acc, hdr, staged,
-                       drop_floats);
+      draw_list<NRMAX, BF16>(table, list, n_list, t, acc, hdr, staged,
+                             drop_floats);
       n_list = 0;
     }
   }
   if (n_list > 0)
-    draw_list<NRMAX>(table, list, n_list, t, acc, hdr, staged, drop_floats);
+    draw_list<NRMAX, BF16>(table, list, n_list, t, acc, hdr, staged,
+                           drop_floats);
   __syncthreads();
 
 #if ABLATED(ABLATE_NOWRITE)
   // The planes are not written; one read of the tile's sums, stored only
   // under SINK_NEVER, keeps the adds live.
   const float kept = acc[tid];
-  if (__float_as_uint(kept) == SINK_NEVER) planes[tid] = kept;
+  if (__float_as_uint(kept) == SINK_NEVER) store_value(planes + tid, kept);
   (void)H; (void)W; (void)lane;
 #else
   // Write the tile's planes once, a warp a row.
   const size_t plane = (size_t)H * W;
-  float* out = planes + (size_t)t.b * n_planes * plane +
+  Store* out = planes + (size_t)t.b * n_planes * plane +
                (size_t)t.ty0 * W + t.tx0;
   const int rows = t.ty1 - t.ty0, cols = t.tx1 - t.tx0;
   for (int pl = 0; pl < n_planes; ++pl)
     for (int row = warp; row < rows; row += N_WARPS)
       for (int col = lane; col < cols; col += 32)
-        out[pl * plane + (size_t)row * W + col] =
-            acc[pl * t.tile_px + row * tile_w + col];
+        store_value(out + pl * plane + (size_t)row * W + col,
+                    acc[pl * t.tile_px + row * tile_w + col]);
 #endif
 }
 
 }  // namespace
 
 // Accumulate every rung of `rungs` (n_rungs records) into fresh planes
-// (B, n_planes, H, W), n_planes 5 or 8, on `stream`, with the wrapper's
+// (B, n_planes, H, W), n_planes 5 or 8, float32 or, with bf16 set,
+// bfloat16 (bit r of round_first: rung r rounds each contribution to
+// bfloat16 before adding it), on `stream`, with the wrapper's
 // launch plan: tiles of tile_h x tile_w pixels, the grid (grid_x,
 // grid_y) = (tiles, B), smem_bytes of dynamic shared memory for a list
 // of list_cap entries and staged drops of up to coef_floats
@@ -629,11 +683,12 @@ fused_raster_kernel(const __grid_constant__ RungTable table, int n_rungs,
 // cudaErrorInvalidValue for a plan that does not match the kernel's
 // layout or a rung it cannot take); does not synchronise.
 extern "C" int fused_raster_launch(const Rung* rungs, int n_rungs,
-                                   float* planes, int B, int H, int W,
+                                   void* planes, int B, int H, int W,
                                    int n_planes, float inv_th, float inv_tw,
                                    int tile_h, int tile_w, int grid_x,
                                    int grid_y, int smem_bytes, int list_cap,
-                                   int coef_floats, void* stream) {
+                                   int coef_floats, int bf16,
+                                   int round_first, void* stream) {
   if (n_rungs < 1 || n_rungs > MAX_RUNGS || list_cap != LIST_CAP ||
       tile_h < 1 || tile_w < 1 || coef_floats < 0 ||
       (n_planes != N_PLANES && n_planes != N_PLANES_SAT))
@@ -660,18 +715,26 @@ extern "C" int fused_raster_launch(const Rung* rungs, int n_rungs,
     return (int)cudaErrorInvalidValue;
   int max_r = 0;
   for (int r = 0; r < n_rungs; ++r) max_r = max(max_r, rungs[r].R);
-  // The rank ceiling picks the instantiation: a series of at most 4
-  // ranks needs fewer registers.
-  auto kernel =
-      max_r <= 4 ? &fused_raster_kernel<4> : &fused_raster_kernel<8>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
+  // The rank ceiling picks the instantiation (a series of at most 4
+  // ranks needs fewer registers), and the planes' type the store.
   const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
-  kernel<<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(
-      table, n_rungs, planes, H, W, n_planes, inv_th, inv_tw, tile_h, tile_w,
-      (int)tiles_x, coef_floats);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel, auto* out) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, THREADS, smem_bytes, (cudaStream_t)stream>>>(
+        table, n_rungs, out, H, W, n_planes, inv_th, inv_tw, tile_h, tile_w,
+        (int)tiles_x, coef_floats, (unsigned)round_first);
+    return (int)cudaGetLastError();
+  };
+  if (bf16) {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(planes);
+    return max_r <= 4 ? launch(&fused_raster_kernel<4, __nv_bfloat16>, out)
+                      : launch(&fused_raster_kernel<8, __nv_bfloat16>, out);
+  }
+  float* out = static_cast<float*>(planes);
+  return max_r <= 4 ? launch(&fused_raster_kernel<4, float>, out)
+                    : launch(&fused_raster_kernel<8, float>, out);
 }
 
 // The knockout bits this library was built with (0: production).

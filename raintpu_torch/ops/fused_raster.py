@@ -12,8 +12,8 @@ drop's anchor, every pixel
      below ALPHA_CUTOFF;
   3. adds g, log(max(1 - g·lo, LOG_EPS)) and g·add_rgb — and, with the
      saturation planes, clip(g·sat_rgb, 0, 1) — into the frame's five
-     (or eight) image-sized float32 planes (alpha, log_att, add_r,
-     add_g, add_b[, sat_r, sat_g, sat_b]).
+     (or eight) image-sized planes (alpha, log_att, add_r, add_g,
+     add_b[, sat_r, sat_g, sat_b]).
 
 Slots at or beyond ``n_valid[b]`` are skipped, and window pixels
 outside the image are dropped (the JAX package pads its planes and
@@ -21,6 +21,16 @@ crops them afterwards, which gives the same cropped sums).
 
 Each pixel's sums run rung-major, slot-minor: rung after rung, and
 within a rung slot after slot.
+
+The planes are float32, or bfloat16 as the JAX package's
+``PipelineConfig.fields_dtype="bfloat16"`` makes them. In bfloat16 each
+drop's contribution is rounded into the planes as the JAX kernels round
+it (``_accum_rows`` and ``_accum_rows_strip``), pixel by pixel in the
+same order: acc = bf16(acc + c) on a rung that the JAX package
+evaluates on full windows or in row tiles, and acc = bf16(acc + bf16(c))
+on a strip rung (``bucket_strip_pad(ph, pw, radius, 16) > 0``), whose
+contribution the JAX kernel casts to bfloat16 before it adds it. The
+rung's ``round_first`` flag says which rule it takes.
 
 This replaces the Pallas kernels of ``raintpu/ops/pallas/fused_kernel.py``
 on the render path: ``_make_kernel_pipelined`` (single-tile windows,
@@ -95,6 +105,42 @@ MAX_GRID_Y = 65535
 # a variant leaves out. The render path never sets one.
 ABLATE_BITS = {"noeval": 1, "noplace": 2, "noaccum": 4, "nowrite": 8,
                "nostage": 16}
+# The JAX kernels' window tiling (fused_kernel.py): lanes, the float32
+# planes' sublanes (16 for bfloat16 planes) and the window area above
+# which a window is evaluated in row tiles. Here they only decide which
+# rungs round a bfloat16 contribution first (bucket_strip_pad) and which
+# of the JAX package's kernel bodies a rung's window takes (plan_window).
+LANE = 128
+SUBLANE = 8
+SUBLANE_BF16 = 16
+MAX_SLAB_AREA = 80_000
+PLANE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def plan_window(ph: int, pw: int, sublane: int = SUBLANE):
+    """The JAX package's tile-aligned window plan of a rung (a copy of
+    ``fused_kernel.plan_window``): (ph2, pw2, tile_h, n_tiles). More
+    than one row tile is the multi-tile body (K2)."""
+    ph2 = -(-(ph + sublane) // sublane) * sublane
+    pw2 = -(-(pw + LANE) // LANE) * LANE
+    n_tiles = max(1, -(-(ph2 * pw2) // MAX_SLAB_AREA))
+    tile_h = -(-(-(-ph2 // n_tiles)) // sublane) * sublane
+    ph2 = n_tiles * tile_h
+    return ph2, pw2, tile_h, n_tiles
+
+
+def bucket_strip_pad(ph: int, pw: int, radius: int,
+                     sublane: int = SUBLANE) -> int:
+    """The JAX package's strip pad of a rung, or 0 when the rung is not
+    evaluated on a strip (a copy of ``fused_kernel.bucket_strip_pad``):
+    content and erf tails must fit one LANE-wide strip and the window
+    one row tile."""
+    pad = int(1.25 * radius) + 2
+    if pw + 2 * pad > LANE:
+        return 0
+    if plan_window(ph, pw, sublane)[3] != 1:
+        return 0
+    return pad
 
 
 @dataclasses.dataclass
@@ -107,6 +153,9 @@ class RasterRung:
     bxc: torch.Tensor       # (B, C, R, Mx) float32
     n_valid: torch.Tensor   # (B,) int32 — slots [0, n_valid) hold drops
     patch_hw: Tuple[int, int]
+    # bfloat16 planes only: round each contribution to bfloat16 before
+    # adding it (the JAX package's strip rungs), else round once after.
+    round_first: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,20 +322,21 @@ def _check_rung(rung: RasterRung, bsz: int, device) -> None:
 def _sub_rung(rung: RasterRung, b0: int, b1: int, c0: int,
               c1: int) -> RasterRung:
     """Frames [b0, b1) and slots [c0, c1) of a rung."""
-    return RasterRung(
-        params=rung.params[b0:b1, :, c0:c1],
+    return dataclasses.replace(
+        rung, params=rung.params[b0:b1, :, c0:c1],
         anchor=rung.anchor[b0:b1, c0:c1], ayc=rung.ayc[b0:b1, c0:c1],
         bxc=rung.bxc[b0:b1, c0:c1],
-        n_valid=torch.clamp(rung.n_valid[b0:b1] - c0, 0, c1 - c0),
-        patch_hw=rung.patch_hw)
+        n_valid=torch.clamp(rung.n_valid[b0:b1] - c0, 0, c1 - c0))
 
 
 def _accumulate_plain(planes: torch.Tensor, rung: RasterRung, tex_hw,
-                      chunk_px: int) -> None:
+                      chunk_px: int, bf16: bool) -> None:
     """planes (B, P, H, W) += this rung's contributions, evaluated over
     chunks of at most ``chunk_px`` window pixels (whole frames when a
     frame's slots fit, else slot ranges of one frame). Slots past the
-    batch's largest n_valid are not evaluated."""
+    batch's largest n_valid are not evaluated. ``bf16``: the planes hold
+    bfloat16 values (in float32), and each contribution is rounded into
+    them by the rung's rule, slot after slot."""
     bsz = planes.shape[0]
     ph, pw = rung.patch_hw
     c = min(rung.params.shape[2], int(rung.n_valid.max()))
@@ -298,20 +348,48 @@ def _accumulate_plain(planes: torch.Tensor, rung: RasterRung, tex_hw,
         for b0 in range(0, bsz, step):
             b1 = min(b0 + step, bsz)
             _accumulate_chunk(planes[b0:b1], _sub_rung(rung, b0, b1, 0, c),
-                              tex_hw)
+                              tex_hw, bf16)
         return
     step = max(1, chunk_px // (ph * pw))
     for b in range(bsz):
         for c0 in range(0, c, step):
             _accumulate_chunk(
                 planes[b:b + 1],
-                _sub_rung(rung, b, b + 1, c0, min(c0 + step, c)), tex_hw)
+                _sub_rung(rung, b, b + 1, c0, min(c0 + step, c)), tex_hw,
+                bf16)
 
 
-def _accumulate_chunk(planes: torch.Tensor, rung: RasterRung,
-                      tex_hw) -> None:
+def _to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bfloat16 (ties to even), kept float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _contribs(params: torch.Tensor, g: torch.Tensor, sel: torch.Tensor,
+              n_planes: int) -> list:
+    """Each plane's contributions at the selected pixels of patches g
+    (B, C, ph, pw) of drops with ``params`` (B, N_PARAMS, C)."""
+    def per_pixel(k):
+        return params[:, k, :, None, None].expand(g.shape)[sel]
+
+    gs = g[sel]
+    out = [gs,
+           torch.log(torch.clamp_min(1.0 - gs * per_pixel(P_LO), LOG_EPS)),
+           gs * per_pixel(P_ADDR), gs * per_pixel(P_ADDG),
+           gs * per_pixel(P_ADDB)]
+    if n_planes == N_PLANES_SAT:
+        # Saturation planes: the sum of clip(drop_rgb, 0, 1) per drop.
+        out += [torch.clamp(gs * per_pixel(k), 0.0, 1.0)
+                for k in (P_SATR, P_SATG, P_SATB)]
+    return out
+
+
+def _accumulate_chunk(planes: torch.Tensor, rung: RasterRung, tex_hw,
+                      bf16: bool) -> None:
     """planes (B, P, H, W) += one chunk's contributions (every slot of
-    the chunk evaluated at once)."""
+    the chunk evaluated at once). In float32 they are summed in one
+    scatter-add; with ``bf16`` slot after slot, each rounded into the
+    planes (:func:`_to_bf16`), so that every pixel takes its drops in
+    slot order as the JAX kernel does."""
     bsz, n_planes, h, w = planes.shape
     ph, pw = rung.patch_hw
     dev = planes.device
@@ -326,24 +404,22 @@ def _accumulate_chunk(planes: torch.Tensor, rung: RasterRung,
                < rung.n_valid.to(torch.int64)[:, None])[..., None, None]
     sel = slot_ok & (ys < h) & (xs < w) & (g != 0)
     frame = torch.arange(bsz, device=dev)[:, None, None, None]
-    idx = (frame * (n_planes * h * w) + ys * w + xs).expand(g.shape)[sel]
-
-    def per_pixel(k):
-        return rung.params[:, k, :, None, None].expand(g.shape)[sel]
-
-    gs = g[sel]
-    contribs = [gs,
-                torch.log(torch.clamp_min(1.0 - gs * per_pixel(P_LO),
-                                          LOG_EPS)),
-                gs * per_pixel(P_ADDR), gs * per_pixel(P_ADDG),
-                gs * per_pixel(P_ADDB)]
-    if n_planes == N_PLANES_SAT:
-        # Saturation planes: the sum of clip(drop_rgb, 0, 1) per drop.
-        contribs += [torch.clamp(gs * per_pixel(k), 0.0, 1.0)
-                     for k in (P_SATR, P_SATG, P_SATB)]
+    idx = (frame * (n_planes * h * w) + ys * w + xs).expand(g.shape)
     flat = planes.view(-1)
-    for k, v in enumerate(contribs):
-        flat.index_put_((idx + k * h * w,), v, accumulate=True)
+    if not bf16:
+        pix = idx[sel]
+        for k, v in enumerate(_contribs(rung.params, g, sel, n_planes)):
+            flat.index_put_((pix + k * h * w,), v, accumulate=True)
+        return
+    for s in range(c):
+        one = slice(s, s + 1)
+        pix = idx[:, one][sel[:, one]]
+        for k, v in enumerate(_contribs(rung.params[:, :, one], g[:, one],
+                                        sel[:, one], n_planes)):
+            pos = pix + k * h * w
+            if rung.round_first:
+                v = _to_bf16(v)
+            flat[pos] = _to_bf16(flat[pos] + v)
 
 
 def _check_rungs(rungs, n_planes) -> None:
@@ -356,20 +432,27 @@ def _check_rungs(rungs, n_planes) -> None:
         _check_rung(rung, bsz, device)
 
 
-def _new_planes(rungs, image_hw, n_planes) -> torch.Tensor:
-    _check_rungs(rungs, n_planes)
-    return torch.zeros((rungs[0].params.shape[0], n_planes) + tuple(image_hw),
-                       dtype=torch.float32, device=rungs[0].params.device)
+def _check_dtype(dtype) -> None:
+    if dtype not in PLANE_DTYPES:
+        raise ValueError(f"fused_raster: planes are float32 or bfloat16, "
+                         f"not {dtype}")
 
 
 def fused_raster_plain(rungs: Sequence[RasterRung], image_hw, tex_hw,
                        n_planes: int = N_PLANES,
-                       chunk_px: int = PLAIN_CHUNK_PX) -> torch.Tensor:
-    """Plain PyTorch version: (B, n_planes, H, W) float32 planes."""
-    planes = _new_planes(rungs, image_hw, n_planes)
+                       chunk_px: int = PLAIN_CHUNK_PX,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version: (B, n_planes, H, W) planes of ``dtype``
+    (float32 or bfloat16)."""
+    _check_rungs(rungs, n_planes)
+    _check_dtype(dtype)
+    bf16 = dtype == torch.bfloat16
+    planes = torch.zeros((rungs[0].params.shape[0], n_planes)
+                         + tuple(image_hw), dtype=torch.float32,
+                         device=rungs[0].params.device)
     for rung in rungs:
-        _accumulate_plain(planes, rung, tex_hw, chunk_px)
-    return planes
+        _accumulate_plain(planes, rung, tex_hw, chunk_px, bf16)
+    return planes.to(dtype)
 
 
 class _RungRecord(ctypes.Structure):
@@ -417,7 +500,7 @@ def kernel_library(ablate: str = ""):
         lib.fused_raster_launch.argtypes = (
             [ctypes.POINTER(_RungRecord), ctypes.c_int, ctypes.c_void_p]
             + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.fused_raster_launch.restype = ctypes.c_int
         lib.fused_raster_error_string.argtypes = [ctypes.c_int]
         lib.fused_raster_error_string.restype = ctypes.c_char_p
@@ -444,7 +527,10 @@ def _launch(planes: torch.Tensor, rungs: Sequence[RasterRung],
         err = lib.fused_raster_launch(
             table, len(rungs), planes.data_ptr(), bsz, h, w, n_planes,
             1.0 / th, 1.0 / tw, *plan.tile_hw, *plan.grid, plan.smem_bytes,
-            plan.list_cap, plan.coef_floats, stream)
+            plan.list_cap, plan.coef_floats,
+            int(planes.dtype == torch.bfloat16),
+            sum(1 << i for i, r in enumerate(rungs) if r.round_first),
+            stream)
     if err != 0:
         raise RuntimeError("fused_raster kernel launch failed: "
                            + lib.fused_raster_error_string(err).decode())
@@ -456,12 +542,16 @@ def _launch(planes: torch.Tensor, rungs: Sequence[RasterRung],
 
 def fused_raster_composite(rungs: Sequence[RasterRung], image_hw,
                            tex_hw, n_planes: int = N_PLANES,
-                           ablate: str = "") -> torch.Tensor:
+                           ablate: str = "",
+                           dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
     """Accumulate every rung's drops into fresh (B, n_planes, H, W)
-    float32 planes (n_planes 5, or 8 with the saturation planes): the
-    CUDA kernel (one launch for all rungs, planned by :func:`tile_plan`,
-    on the current stream, no synchronisation) for CUDA tensors, the
-    plain version for CPU tensors. At most ``MAX_RUNGS`` rungs, which
+    planes of ``dtype``, float32 or bfloat16 (each rung's contributions
+    then rounded by its ``round_first`` rule), n_planes 5, or 8 with
+    the saturation planes: the CUDA kernel (one launch for all rungs,
+    planned by :func:`tile_plan`, on the current stream, no
+    synchronisation) for CUDA tensors, the plain version for CPU
+    tensors. At most ``MAX_RUNGS`` rungs, which
     must agree on the batch size and the device.
     ``ablate`` (names of ABLATE_BITS joined by "+", see
     :func:`ablate_bits`) launches a knockout variant of the kernel,
@@ -480,13 +570,14 @@ def fused_raster_composite(rungs: Sequence[RasterRung], image_hw,
         raise ValueError(f"fused_raster: ablate {ablate!r} exists only in "
                          "the CUDA kernel; no plain version")
     if device.type == "cpu":
-        return fused_raster_plain(rungs, image_hw, tex_hw, n_planes)
+        return fused_raster_plain(rungs, image_hw, tex_hw, n_planes,
+                                  dtype=dtype)
     if device.type != "cuda":
         raise ValueError(f"fused_raster: no kernel for {device.type}")
     _check_rungs(rungs, n_planes)
+    _check_dtype(dtype)
     planes = torch.empty((rungs[0].params.shape[0], n_planes)
-                         + tuple(image_hw), dtype=torch.float32,
-                         device=device)
+                         + tuple(image_hw), dtype=dtype, device=device)
     if planes.numel():
         _launch(planes, rungs, tex_hw, ablate)
     return planes

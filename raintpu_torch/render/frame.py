@@ -47,7 +47,8 @@ from raintpu_torch.ops import fog as fog_ops
 from raintpu_torch.ops import photometry as photometry_ops
 from raintpu_torch.ops import rasterize as raster_ops
 from raintpu_torch.ops.fused_raster import (N_PLANES, N_PLANES_SAT,
-                                            RasterRung,
+                                            SUBLANE_BF16, RasterRung,
+                                            bucket_strip_pad,
                                             fused_raster_composite)
 from raintpu_torch.particles.schema import DropBatch
 from raintpu_torch.render.camera import RenderSettings
@@ -58,8 +59,8 @@ class PipelineConfig:
     """Static per-weather render configuration.
 
     The fields of the JAX PipelineConfig, less its TPU layout knobs
-    (fields_dtype, row_strip, pair_eval, narrow_dma, resident): the
-    fused path accumulates float32 planes in one kernel launch.
+    (row_strip, pair_eval, narrow_dma, resident): the fused path
+    accumulates its planes in one kernel launch.
     """
 
     settings: RenderSettings
@@ -78,6 +79,12 @@ class PipelineConfig:
     #              because its kernel compiles only for the TPU; the
     #              port's fused path runs on the CPU too.
     composite_mode: str = "auto"
+    # Field-plane dtype of the fused path: "bfloat16" halves the bytes
+    # of the kernel's plane store and of the crop's read, at the cost of
+    # one bfloat16 rounding (2^-8 relative) per overlapping drop, rounded
+    # as the JAX package's windowed kernels round it. Any other value is
+    # float32, the default. The golden path ("xla") ignores it.
+    fields_dtype: str = "float32"
     # Extra block-reduction of the envmap features used only for the
     # per-drop cone photometry (on top of env_downsample); 1 = exact.
     cone_downsample: int = 1
@@ -357,13 +364,25 @@ def drop_fields(env_rgb: Optional[torch.Tensor], drops: DropBatch,
 
 
 def kernel_rungs(rungs, cfg: PipelineConfig):
-    """rasterize.RungParams -> the fused kernel's RasterRung operands."""
+    """rasterize.RungParams -> the fused kernel's RasterRung operands.
+    A rung that the JAX package evaluates on a strip under bfloat16
+    planes rounds each contribution to bfloat16 before adding it, as
+    that strip's accumulate does."""
     return [RasterRung(params=r.params, anchor=r.anchor, ayc=r.ayc,
                        bxc=r.bxc,
                        n_valid=r.valid.to(torch.int32).sum(-1).to(
                            torch.int32),
-                       patch_hw=(b.ph, b.pw))
+                       patch_hw=(b.ph, b.pw),
+                       round_first=bucket_strip_pad(
+                           b.ph, b.pw, b.radius, SUBLANE_BF16) > 0)
             for r, b in zip(rungs, cfg.raster.buckets)]
+
+
+def plane_dtype(cfg: PipelineConfig) -> torch.dtype:
+    """The fused path's plane dtype: bfloat16 for "bfloat16", else
+    float32 (as the JAX package reads cfg.fields_dtype)."""
+    return (torch.bfloat16 if cfg.fields_dtype == "bfloat16"
+            else torch.float32)
 
 
 def fused_field_planes(bg, depth, drops: DropBatch, textures, bin_edges,
@@ -377,8 +396,9 @@ def fused_field_planes(bg, depth, drops: DropBatch, textures, bin_edges,
     Returns (fogged, env_save, planes, overflow) with ``planes``
     (B, P, H, W) in plane order (alpha, log_att, add_r, add_g, add_b
     [, sat_r, sat_g, sat_b]) — 8 planes when
-    cfg.compute_saturation_mask — and image-sized already (the JAX
-    package's are padded for TPU window tiling)."""
+    cfg.compute_saturation_mask — of :func:`plane_dtype`, and
+    image-sized already (the JAX package's are padded for TPU window
+    tiling)."""
     fogged, env_photo, env_save = frame_background(bg, depth, cfg, pano)
     rungs, overflow = drop_fused_params(env_photo, drops, textures,
                                         bin_edges, cfg, generator, tex_idx,
@@ -386,7 +406,8 @@ def fused_field_planes(bg, depth, drops: DropBatch, textures, bin_edges,
     planes = fused_raster_composite(
         kernel_rungs(rungs, cfg), cfg.image_hw,
         tuple(textures.raw.shape[1:]),
-        N_PLANES_SAT if cfg.compute_saturation_mask else N_PLANES)
+        N_PLANES_SAT if cfg.compute_saturation_mask else N_PLANES,
+        dtype=plane_dtype(cfg))
     return fogged, env_save, planes, overflow
 
 

@@ -73,14 +73,23 @@ def bound_ms(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def raster_bound(rungs, image_hw, n_planes):
+def raster_bytes(rungs, image_hw, n_planes, dtype=torch.float32) -> int:
+    """The bytes one raster call over ``rungs`` must move: the operands
+    read once and the planes (of ``dtype``) written once."""
+    h, w = image_hw
+    return (sum(t.numel() * t.element_size() for r in rungs
+                for t in (r.params, r.anchor, r.ayc, r.bxc))
+            + rungs[0].params.shape[0] * n_planes * h * w
+            * torch.finfo(dtype).bits // 8)
+
+
+def raster_bound(rungs, image_hw, n_planes, dtype=torch.float32):
     """Bound of one raster call over ``rungs``: the operations of every
     window pixel inside the image of every valid slot, and the bytes of
-    the operands read once and the planes written once. Returns (ms,
-    "operations" or "bytes", window px)."""
+    :func:`raster_bytes`. Returns (ms, "operations" or "bytes", window
+    px)."""
     h, w = image_hw
     ops = 0.0
-    nbytes = 0
     px = 0
     for r in rungs:
         ph, pw = r.patch_hw
@@ -94,10 +103,8 @@ def raster_bound(rungs, image_hw, n_planes):
         ops += n * (5 * ranks * (my + mx - 2) + 2 * ranks
                     + RASTER_FIXED_OPS)
         px += n
-        nbytes += sum(t.numel() * t.element_size()
-                      for t in (r.params, r.anchor, r.ayc, r.bxc))
-    nbytes += rungs[0].params.shape[0] * n_planes * h * w * 4
-    return bound_ms(ops, nbytes) + (px,)
+    return bound_ms(ops, raster_bytes(rungs, image_hw, n_planes,
+                                      dtype)) + (px,)
 
 
 def workload(fallrate: float = 10.0, device=None) -> dict:
@@ -144,16 +151,16 @@ def mean_valid(rungs) -> float:
 
 def launch_ms(rungs, image_hw, tex_hw, ablate: str = "",
               iters: int = ITERS, reps: int = REPS,
-              n_planes: int = N_PLANES) -> float:
-    """ms per launch of the kernel (variant ``ablate``) on ``rungs``: the
-    median over ``reps`` windows of CUDA events around ``iters``
-    back-to-back launches, after one warm-up launch. Raises unless the
-    wrapper counted one launch per call."""
+              n_planes: int = N_PLANES, dtype=torch.float32) -> float:
+    """ms per launch of the kernel (variant ``ablate``, planes of
+    ``dtype``) on ``rungs``: the median over ``reps`` windows of CUDA
+    events around ``iters`` back-to-back launches, after one warm-up
+    launch. Raises unless the wrapper counted one launch per call."""
     if rungs[0].params.device.type != "cuda":
         raise ValueError("launch_ms: timing needs tensors on the card")
     fn = fused_raster.fused_raster_composite
     before = fn.launches
-    fn(rungs, image_hw, tex_hw, n_planes, ablate)
+    fn(rungs, image_hw, tex_hw, n_planes, ablate, dtype)
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -161,7 +168,7 @@ def launch_ms(rungs, image_hw, tex_hw, ablate: str = "",
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            fn(rungs, image_hw, tex_hw, n_planes, ablate)
+            fn(rungs, image_hw, tex_hw, n_planes, ablate, dtype)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)

@@ -10,7 +10,9 @@ store it fed. ``--against SRC`` also compiles another version of
 ``csrc/fused_raster.cu`` (e.g. a parent commit's) with the production
 flags and prints whether the production library's SASS equals it, the
 kernels' mangled names aside (nvcc hashes the source's path into the
-unnamed namespace's name).
+unnamed namespace's name), instantiation by instantiation for those the
+other source has (a source from before the bfloat16 planes has only the
+float32 ones).
 
 Usage:  python -m raintpu_torch.tools.kernel_sass [--against SRC]
 """
@@ -31,6 +33,9 @@ from raintpu_torch.tools import kernel_ablation
 # An instruction line: /*address*/ [predicate] OPCODE.modifiers ...
 INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)")
 FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
+# A kernel instantiation's template arguments in its mangled name: the
+# rank ceiling, and the planes' type (absent before bfloat16 planes).
+INSTANTIATION = re.compile(r"ILi(\d+)E(?:(f|13__nv_bfloat16)E)?")
 OPCODES = ("MUFU", "FADD", "FMUL", "FFMA", "LDS", "STS", "LDG", "STG", "BAR",
            "SHFL", "BRA")
 
@@ -50,9 +55,19 @@ def opcode_mix(text: str) -> dict:
             for name, body in zip(names, bodies)}
 
 
-def without_names(text: str) -> str:
-    """A SASS listing with the kernels' mangled names blanked."""
-    return FUNCTION.sub("Function : <name>", text)
+def instantiation(name: str) -> str:
+    """A kernel's label from its mangled name: "<rank, planes' type>"."""
+    m = INSTANTIATION.search(name)
+    if not m:
+        return name
+    store = "bf16" if m.group(2) == "13__nv_bfloat16" else "float"
+    return f"<{m.group(1)}, {store}>"
+
+
+def bodies(text: str) -> dict:
+    """{instantiation label: its SASS, names aside} of a listing."""
+    return {instantiation(name): body for name, body in
+            zip(FUNCTION.findall(text), FUNCTION.split(text)[2::2])}
 
 
 def ptxas_usage(defines=()) -> list:
@@ -82,9 +97,7 @@ def main(argv=None) -> dict:
         text = sass(path)
         name = ablate or "production"
         for fn, ops in opcode_mix(text).items():
-            kind = re.search(r"ILi(\d+)E", fn)
-            label = f"<{kind.group(1)}>" if kind else fn
-            print(f"sass {name:<40s} {label} instructions "
+            print(f"sass {name:<40s} {instantiation(fn)} instructions "
                   f"{sum(ops.values())} " + " ".join(
                       f"{k}={ops.get(k, 0)}" for k in OPCODES), flush=True)
         usage = ptxas_usage(ablate_defines(ablate))
@@ -99,12 +112,12 @@ def main(argv=None) -> dict:
                             "-o", other, args.against], check=True,
                            timeout=600)
             theirs = sass(other)
-        mine = sass(paths[0])
-        same = without_names(mine) == without_names(theirs)
-        print(f"production SASS ({len(mine.splitlines())} lines) equals "
-              f"{args.against}'s ({len(theirs.splitlines())} lines), the "
-              f"mangled names aside: {same}", flush=True)
-        out["same_as_against"] = same
+        mine, theirs = bodies(sass(paths[0])), bodies(theirs)
+        same = {k: mine.get(k) == v for k, v in theirs.items()}
+        print(f"production SASS by instantiation equals {args.against}'s, "
+              f"the mangled names aside: {same} (here: {sorted(mine)})",
+              flush=True)
+        out["same_as_against"] = all(same.values())
     return out
 
 

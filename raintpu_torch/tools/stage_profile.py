@@ -14,7 +14,9 @@ reports the stage deltas:
     full        fields + finalize (blend, contrast adjust, crop)
 
 The stages are the port's ``render/frame.py`` functions, on
-``--device`` (the CUDA card unless ``--device cpu``). Each stage runs
+``--device`` (the CUDA card unless ``--device cpu``), with the field
+planes of ``FIELDS_DTYPE`` (an environment variable: float32, the
+default, or bfloat16; PipelineConfig.fields_dtype). Each stage runs
 ``--iters`` times per repetition and reports the median of ``--reps``
 repetitions, per step: on the card timed by CUDA events, with a
 synchronize before each read; on the CPU by ``time.perf_counter``.
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 
@@ -141,6 +144,8 @@ def workload(args: argparse.Namespace) -> dict:
         raster = RasterConfig(buckets=HAND_LADDER)
     cfg = frame.PipelineConfig(settings=settings, image_hw=(H, W),
                                fallrate=args.fallrate, raster=raster,
+                               fields_dtype=os.environ.get("FIELDS_DTYPE",
+                                                           "float32"),
                                cone_downsample=CONE_DOWNSAMPLE)
     rng = np.random.RandomState(0)
     bg = torch.as_tensor(rng.rand(B, H, W, 3).astype(np.float32), device=dev)

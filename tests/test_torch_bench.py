@@ -34,8 +34,8 @@ from torch_cpu_threads import one_torch_thread  # noqa: F401
 REPO = Path(__file__).resolve().parent.parent
 TINY = {"HW": "96x256", "BATCH": "2", "ITERS": "2", "CAPACITY": "64",
         "DEVICE": "cpu"}
-KEYS = {"metric", "value", "unit", "steady_state", "modal_blur",
-        "cone_downsample", "ladder", "device", "launches"}
+KEYS = {"metric", "value", "unit", "steady_state", "fields_dtype",
+        "modal_blur", "cone_downsample", "ladder", "device", "launches"}
 
 
 def _jax_hand_ladder():
@@ -72,6 +72,7 @@ def test_bench_line_holds_the_ports_keys(monkeypatch, capsys):
     assert rec["unit"] == "images/s"
     assert rec["ladder"] == _jax_hand_ladder()
     assert rec["modal_blur"] is True and rec["cone_downsample"] == 4
+    assert rec["fields_dtype"] == "float32"
     assert rec["device"] == "cpu"
     # The CPU runs every kernel's plain version: no launch.
     assert rec["launches"] == {"raster": 0, "blur": 0}
@@ -90,6 +91,36 @@ def test_bench_fitted_ladder_and_modal_knob(monkeypatch, capsys):
     assert f"# fitted ladder: {want}" in out
     assert rec["modal_blur"] is False
     assert set(rec) == KEYS and rec["value"] > 0
+
+
+def test_bench_bf16_field_planes(monkeypatch, capsys):
+    """FIELDS_DTYPE=bfloat16 (the JAX bench's knob): the render's planes
+    are bfloat16, the guards pass and the line says so."""
+    dtypes = []
+    real = tframe.fused_field_planes
+
+    def planes(*args, **kw):
+        out = real(*args, **kw)
+        dtypes.append(out[2].dtype)
+        return out
+
+    monkeypatch.setattr(tframe, "fused_field_planes", planes)
+    rec, _ = _run(monkeypatch, capsys, FIELDS_DTYPE="bfloat16")
+    assert set(rec) == KEYS and rec["fields_dtype"] == "bfloat16"
+    assert rec["value"] > 0 and rec["steady_state"] > 0
+    assert rec["launches"] == {"raster": 0, "blur": 0}
+    assert dtypes and set(dtypes) == {torch.bfloat16}
+
+
+def test_bench_bf16_refuses_without_a_card(monkeypatch, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the bench would run on it")
+    for name in bench.KNOBS:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("FIELDS_DTYPE", "bfloat16")
+    with pytest.raises(SystemExit, match="no CUDA card"):
+        bench.main()
+    assert capsys.readouterr().out == ""
 
 
 def _with_output(monkeypatch, change):

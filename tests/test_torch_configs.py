@@ -15,8 +15,7 @@ from raintpu_torch.physics import simulator as tsim
 from raintpu_torch.render import frame as tframe
 
 # TPU layout knobs of the JAX PipelineConfig that the port leaves out.
-TPU_ONLY = {"fields_dtype", "row_strip", "pair_eval", "narrow_dma",
-            "resident"}
+TPU_ONLY = {"row_strip", "pair_eval", "narrow_dma", "resident"}
 
 _LADDER = dict(ph=24, pw=32, radius=5, capacity=224, modes_y=12,
                modes_x=6, ranks=3)

@@ -7,6 +7,8 @@ kernels, so it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -79,6 +81,38 @@ def test_kernel_matches_plain(cuda):
     # is built with --fmad=false); cos, tanh and log round differently
     # on the card.
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_planes", [5, 8])
+def test_bf16_kernel_matches_plain(cuda, n_planes):
+    """bfloat16 planes on the scene's strip rungs (contribution rounded
+    first) and its 112x96 rung: every value within two bfloat16 units,
+    at least 99.9% of the non-zero values bit-equal (the float32
+    contributions differ in their last bits), two launches
+    bit-identical."""
+    cfg, gen, drops, bg, depth, tex, edges = _scene(cuda)
+    cfg = dataclasses.replace(cfg, compute_saturation_mask=True)
+    _, env, _ = frame.frame_background(bg, depth, cfg)
+    prep, _ = frame.drop_fused_params(env, drops, tex, edges, cfg,
+                                      generator=gen)
+    rungs = frame.kernel_rungs(prep, cfg)
+    assert [r.round_first for r in rungs] == [True, True, True, False]
+    tex_hw = tuple(tex.raw.shape[1:])
+    bf16 = torch.bfloat16
+    got = tfr.fused_raster_composite(rungs, cfg.image_hw, tex_hw, n_planes,
+                                     dtype=bf16)
+    again = tfr.fused_raster_composite(rungs, cfg.image_hw, tex_hw,
+                                       n_planes, dtype=bf16)
+    want = tfr.fused_raster_plain(rungs, cfg.image_hw, tex_hw, n_planes,
+                                  dtype=bf16)
+    torch.cuda.synchronize()
+    assert got.dtype == bf16 and torch.equal(got, again)
+    g, w = got.float().cpu(), want.float().cpu()
+    assert w[:, 0].sum() > 1.0
+    assert bool(((g - w).abs() <= 2.0 ** -7 * w.abs() + 1e-6).all())
+    lit = (g != 0) | (w != 0)
+    assert (g == w)[lit].float().mean().item() >= 0.999
 
 
 @pytest.mark.gpu

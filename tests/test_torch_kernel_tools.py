@@ -49,8 +49,7 @@ from torch_cpu_threads import one_torch_thread  # noqa: F401
 REPO = Path(__file__).resolve().parent.parent
 ATOL = 2e-4
 # TPU layout knobs of the JAX PipelineConfig that the port leaves out.
-TPU_ONLY = {"fields_dtype", "row_strip", "pair_eval", "narrow_dma",
-            "resident"}
+TPU_ONLY = {"row_strip", "pair_eval", "narrow_dma", "resident"}
 
 
 @pytest.fixture(scope="module")
@@ -328,5 +327,9 @@ def test_sass_listing_helpers():
     assert second == {"STG": 1}
     other = listing.replace("_ZN12_GLOBAL__N_1", "_ZN48_GLOBAL__N__b89_")
     assert other != listing
-    assert kernel_sass.without_names(other) == kernel_sass.without_names(
-        listing)
+    assert kernel_sass.bodies(other) == kernel_sass.bodies(listing)
+    assert list(kernel_sass.bodies(listing)) == ["<4, float>", "<8, float>"]
+    # The planes' type, where the name has it (bfloat16 planes).
+    bf16 = listing.replace("ILi8EEEv", "ILi8E13__nv_bfloat16EEv").replace(
+        "ILi4EEEv", "ILi4EfEEv")
+    assert list(kernel_sass.bodies(bf16)) == ["<4, float>", "<8, bf16>"]
