@@ -1,0 +1,78 @@
+"""A run with the timed path broken underneath comes out not correct,
+for each fault a render cell can have: a step that hands back an
+earlier step's outputs (its state unchanged), half of the batch left
+out, and an answer altered where it is produced: one drop of one frame
+lost from the rain mask and the image, or drops lost to rungs cut below
+their occupancy (the drop accounting). The cells take one chip, so
+there is no exchange between chips to leave out."""
+
+import dataclasses
+import time
+
+import pytest
+import torch
+
+from rainbench import harness
+from rainbench.tests.conftest import tiny
+from raintpu_torch.render import frame
+
+SEED = 2 ** 36 + 5
+
+
+def _stale(real):
+    last = {}
+
+    def render(bg, *a, **kw):
+        out = last.get("out")
+        last["out"] = real(bg, *a, **kw)
+        return out if out is not None else last["out"]
+    return render
+
+
+def _half(real):
+    def render(bg, depth, drops, *a, **kw):
+        n = bg.shape[0] // 2
+        out = real(bg[:n], depth[:n], drops.map(lambda t: t[:n]), *a,
+                   **{k: (v[:n] if isinstance(v, torch.Tensor) else v)
+                      for k, v in kw.items()})
+        pad = n if bg.shape[0] % 2 == 0 else n + 1
+
+        def fill(t):
+            return None if t is None else torch.cat([t, t[:pad] * 0])
+        return frame.FrameOutput(
+            **{f.name: fill(getattr(out, f.name))
+               for f in dataclasses.fields(out)})
+    return render
+
+
+def _altered(real):
+    def render(bg, depth, drops, *a, **kw):
+        valid = drops.valid.clone()
+        first = int(valid[0].nonzero()[0])
+        valid[0, first] = False
+        return real(bg, depth, dataclasses.replace(drops, valid=valid), *a,
+                    **kw)
+    return render
+
+
+def _short(real):
+    def render(bg, depth, drops, textures, edges, cfg, *a, **kw):
+        rungs = tuple(dataclasses.replace(b, capacity=max(1, b.capacity // 4))
+                      for b in cfg.raster.buckets)
+        cfg = dataclasses.replace(cfg, raster=dataclasses.replace(
+            cfg.raster, buckets=rungs))
+        return real(bg, depth, drops, textures, edges, cfg, *a, **kw)
+    return render
+
+
+@pytest.mark.parametrize("fault", [_stale, _half, _altered, _short],
+                         ids=["stale", "half", "altered", "short"])
+@pytest.mark.parametrize("name", ["kitti-10mm", "nuscenes-100mm"])
+def test_fault_is_not_correct(monkeypatch, fault, name):
+    cell = tiny(name, batch=4 if fault is _half else 2)
+    monkeypatch.setattr(frame, "render_frames", fault(frame.render_frames))
+    result, checks = harness.run(cell, SEED, 0.3, False, "cpu",
+                                 time.perf_counter())
+    assert result["correct"] is False
+    assert result["failed"] > 0
+    assert any(c["value"] > c["limit"] for c in checks.values())
