@@ -1,0 +1,12 @@
+"""render.finalize.host_ms (ms): the host's median ms a render step
+inside the program's render.finalize span (render/frame.crop_field_planes
+and finalize_frame: the blend, the mean shift and the clip), over the
+window's untraced steps (rainbench/spans.py). The span does not
+synchronize: this is the time the host took to issue the stage, a wait
+for room in the launch queue included."""
+
+from rainbench import spans
+
+
+def read(run):
+    return spans.host_ms(run, "render.finalize")

@@ -27,6 +27,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from raintpu_torch.particles.schema import DropBatch
 from raintpu_torch.render import frame as frame_mod
 from raintpu_torch.render.frame import FrameOutput, PipelineConfig
+from raintpu_torch.utils import profiling
 
 
 def make_mesh(n_devices: Optional[int] = None, sp: int = 1,
@@ -102,8 +103,10 @@ def render_frames_sharded(mesh: DeviceMesh,
     the row.
     ``cfg.save_envmap`` and ``cfg.compute_saturation_mask`` add their
     outputs; the pano envmap is not taken (nor by the JAX package's
-    sharded render).
+    sharded render). A call is a render step of the stage spans
+    (``utils.profiling``), as ``render_frames`` is.
     """
+    profiling.next_step()
     sp = mesh.size(1)
     n = drops.valid.shape[1]
     if n % sp:

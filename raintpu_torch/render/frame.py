@@ -32,6 +32,14 @@ gains, no defocus, no photometry envmap), streak noise (each
 Small/Medium drop rotated by its own noise angle, given as data or
 drawn from the frame's generator), and the captured-panorama envmap
 (``env_type='pano'``).
+
+Each render step (one call of :func:`render_frames`,
+:func:`render_frame` or ``parallel.mesh.render_frames_sharded``:
+``utils.profiling.next_step``) times its stages as sibling spans (``utils.profiling.span``, STAGES): render.fog,
+render.envmap, render.prep (with render.prep.photometry,
+render.prep.geometry and render.prep.rungs inside it), render.raster
+(the kernel's launch, or the golden path's scatter composite) and
+render.finalize, each opened once a step.
 """
 
 from __future__ import annotations
@@ -52,6 +60,12 @@ from raintpu_torch.ops.fused_raster import (N_PLANES, N_PLANES_SAT,
                                             fused_raster_composite)
 from raintpu_torch.particles.schema import DropBatch
 from raintpu_torch.render.camera import RenderSettings
+from raintpu_torch.utils import profiling
+
+# The render step's top-level stage spans, in the order a step opens
+# them.
+STAGES = ("render.fog", "render.envmap", "render.prep", "render.raster",
+          "render.finalize")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,26 +208,28 @@ def frame_background(bg: torch.Tensor, depth: torch.Tensor,
     cam = st.camera
     h, w = cfg.image_hw
     physics = st.rendering_strategy is None
-    fogged = batched_fog(bg, depth, cfg)
+    with profiling.span("render.fog"):
+        fogged = batched_fog(bg, depth, cfg)
     gen_ds, _ = env_downsamples(cfg)
     env_photo = env_save = None
-    if st.env_type == "pano" and (physics or cfg.save_envmap):
-        if pano is None:
-            raise ValueError("env_type='pano' requires a panorama input")
-        pano = pano.to(torch.float32)
-        if physics:
-            env_photo = _avg_pool_rgb(pano, gen_ds)
-        if cfg.save_envmap:
-            env_save = pano
-    elif physics or cfg.save_envmap:
-        if physics:
-            geom_lo = envmap_ops.envmap_geometry(h // gen_ds, w // gen_ds,
-                                                 cam.focal)
-            env_photo = envmap_ops.generate_envmap(
-                _avg_pool_rgb(fogged, gen_ds), geom_lo)
-        if cfg.save_envmap:
-            env_save = envmap_ops.generate_envmap(
-                fogged, envmap_ops.envmap_geometry(h, w, cam.focal))
+    with profiling.span("render.envmap"):
+        if st.env_type == "pano" and (physics or cfg.save_envmap):
+            if pano is None:
+                raise ValueError("env_type='pano' requires a panorama input")
+            pano = pano.to(torch.float32)
+            if physics:
+                env_photo = _avg_pool_rgb(pano, gen_ds)
+            if cfg.save_envmap:
+                env_save = pano
+        elif physics or cfg.save_envmap:
+            if physics:
+                geom_lo = envmap_ops.envmap_geometry(
+                    h // gen_ds, w // gen_ds, cam.focal)
+                env_photo = envmap_ops.generate_envmap(
+                    _avg_pool_rgb(fogged, gen_ds), geom_lo)
+            if cfg.save_envmap:
+                env_save = envmap_ops.generate_envmap(
+                    fogged, envmap_ops.envmap_geometry(h, w, cam.focal))
     return fogged, env_photo, env_save
 
 
@@ -256,30 +272,35 @@ def _drop_prep(env_rgb: Optional[torch.Tensor], drops: DropBatch,
     st = cfg.settings
     cam = st.camera
     physics = st.rendering_strategy is None
-    if physics:
-        env = photometry_ops.env_features(
-            env_rgb, downsample=env_downsamples(cfg)[1])
-        mid = (drops.wp1 + drops.wp2) / 2.0
-        gains = photometry_ops.drop_colors(
-            mid, env, sphere_radius=st.sphere_radius,
-            fov_deg=st.drop_fov_deg, irrad_type=st.irrad_type)
-    else:
-        gains = torch.ones(drops.valid.shape + (3,), dtype=torch.float32,
-                           device=drops.valid.device)
+    with profiling.span("render.prep.photometry"):
+        if physics:
+            env = photometry_ops.env_features(
+                env_rgb, downsample=env_downsamples(cfg)[1])
+            mid = (drops.wp1 + drops.wp2) / 2.0
+            gains = photometry_ops.drop_colors(
+                mid, env, sphere_radius=st.sphere_radius,
+                fov_deg=st.drop_fov_deg, irrad_type=st.irrad_type)
+        else:
+            gains = torch.ones(drops.valid.shape + (3,),
+                               dtype=torch.float32,
+                               device=drops.valid.device)
 
-    tex_idx, noise_deg = frame_draws(drops, bin_edges, cfg, generator,
-                                     tex_idx, noise_deg)
-    geom_d = raster_ops.drop_geometry(
-        drops, tex_hw, cfg.image_wh,
-        focal_m=cam.focal_m, f_number=cam.f_number,
-        focus_plane=st.focus_plane, coc_pixsize=cfg.raster.coc_pixsize,
-        apply_defocus=physics, noise_deg=noise_deg)
-    lo, add_scale = composite_ops.blend_coefficients(
-        drops.iw1, drops.iw2, drops.length,
-        exposure_s=cam.exposure_s,
-        opacity_attenuation=st.opacity_attenuation,
-        rendering_strategy=st.rendering_strategy)
-    return gains, tex_idx, geom_d, lo, gains * add_scale[..., None]
+    with profiling.span("render.prep.geometry"):
+        tex_idx, noise_deg = frame_draws(drops, bin_edges, cfg, generator,
+                                         tex_idx, noise_deg)
+        geom_d = raster_ops.drop_geometry(
+            drops, tex_hw, cfg.image_wh,
+            focal_m=cam.focal_m, f_number=cam.f_number,
+            focus_plane=st.focus_plane,
+            coc_pixsize=cfg.raster.coc_pixsize,
+            apply_defocus=physics, noise_deg=noise_deg)
+        lo, add_scale = composite_ops.blend_coefficients(
+            drops.iw1, drops.iw2, drops.length,
+            exposure_s=cam.exposure_s,
+            opacity_attenuation=st.opacity_attenuation,
+            rendering_strategy=st.rendering_strategy)
+        add_rgb = gains * add_scale[..., None]
+    return gains, tex_idx, geom_d, lo, add_rgb
 
 
 def drop_fused_params(env_rgb: Optional[torch.Tensor], drops: DropBatch,
@@ -301,17 +322,19 @@ def drop_fused_params(env_rgb: Optional[torch.Tensor], drops: DropBatch,
     pre-tau colors when cfg.compute_saturation_mask, else 0.
     Returns (list of rasterize.RungParams, overflow (B, n_buckets))."""
     tex_hw = tuple(textures.raw.shape[1:])
-    gains, tex_idx, geom_d, lo, add_rgb = _drop_prep(
-        env_rgb, drops, tex_hw, bin_edges, cfg, generator, tex_idx,
-        noise_deg)
-    rungs = raster_ops.raster_params_frame(
-        drops, geom_d, tex_hw, tex_idx, cfg.image_wh, cfg.raster,
-        apply_defocus=cfg.settings.rendering_strategy is None,
-        fourier=(textures.ay, textures.bx))
-    sat_rgb = gains if cfg.compute_saturation_mask else None
-    for rung in rungs:
-        raster_ops.fill_blend_rows(rung, lo, add_rgb, sat_rgb)
-    overflow = torch.stack([r.overflow for r in rungs], dim=-1)
+    with profiling.span("render.prep"):
+        gains, tex_idx, geom_d, lo, add_rgb = _drop_prep(
+            env_rgb, drops, tex_hw, bin_edges, cfg, generator, tex_idx,
+            noise_deg)
+        with profiling.span("render.prep.rungs"):
+            rungs = raster_ops.raster_params_frame(
+                drops, geom_d, tex_hw, tex_idx, cfg.image_wh, cfg.raster,
+                apply_defocus=cfg.settings.rendering_strategy is None,
+                fourier=(textures.ay, textures.bx))
+            sat_rgb = gains if cfg.compute_saturation_mask else None
+            for rung in rungs:
+                raster_ops.fill_blend_rows(rung, lo, add_rgb, sat_rgb)
+            overflow = torch.stack([r.overflow for r in rungs], dim=-1)
     return rungs, overflow
 
 
@@ -329,19 +352,22 @@ def drop_patches(env_rgb: Optional[torch.Tensor], drops: DropBatch,
     (K, TH, TW) tensor (always the gather). Draws and strategies as in
     :func:`drop_fused_params`. Returns (buckets, lo (..., N), add_rgb
     (..., N, 3), gains (..., N, 3), overflow (..., n_buckets)); gains
-    is the drops' pre-tau color, the saturation mask's payload."""
+    is the drops' pre-tau color, the saturation mask's payload. Its
+    render.prep.rungs span holds the rasterization."""
     fourier = None
     if hasattr(textures, "ay"):
         fourier = (textures.ay, textures.bx)
         textures = textures.raw
-    gains, tex_idx, geom_d, lo, add_rgb = _drop_prep(
-        env_rgb, drops, tuple(textures.shape[1:]), bin_edges, cfg,
-        generator, tex_idx, noise_deg)
-    buckets = raster_ops.rasterize_frame_drops(
-        drops, geom_d, textures, tex_idx, cfg.image_wh, cfg.raster,
-        apply_defocus=cfg.settings.rendering_strategy is None,
-        fourier=fourier)
-    overflow = torch.stack([b.overflow for b in buckets], dim=-1)
+    with profiling.span("render.prep"):
+        gains, tex_idx, geom_d, lo, add_rgb = _drop_prep(
+            env_rgb, drops, tuple(textures.shape[1:]), bin_edges, cfg,
+            generator, tex_idx, noise_deg)
+        with profiling.span("render.prep.rungs"):
+            buckets = raster_ops.rasterize_frame_drops(
+                drops, geom_d, textures, tex_idx, cfg.image_wh, cfg.raster,
+                apply_defocus=cfg.settings.rendering_strategy is None,
+                fourier=fourier)
+            overflow = torch.stack([b.overflow for b in buckets], dim=-1)
     return buckets, lo, add_rgb, gains, overflow
 
 
@@ -357,9 +383,10 @@ def drop_fields(env_rgb: Optional[torch.Tensor], drops: DropBatch,
     buckets, lo, add_rgb, gains, overflow = drop_patches(
         env_rgb, drops, textures, bin_edges, cfg, generator, tex_idx,
         noise_deg)
-    fields = composite_ops.composite_drops(
-        cfg.image_hw, buckets, lo, add_rgb,
-        sat_rgb_all=gains if cfg.compute_saturation_mask else None)
+    with profiling.span("render.raster"):
+        fields = composite_ops.composite_drops(
+            cfg.image_hw, buckets, lo, add_rgb,
+            sat_rgb_all=gains if cfg.compute_saturation_mask else None)
     return fields, overflow
 
 
@@ -403,11 +430,12 @@ def fused_field_planes(bg, depth, drops: DropBatch, textures, bin_edges,
     rungs, overflow = drop_fused_params(env_photo, drops, textures,
                                         bin_edges, cfg, generator, tex_idx,
                                         noise_deg)
-    planes = fused_raster_composite(
-        kernel_rungs(rungs, cfg), cfg.image_hw,
-        tuple(textures.raw.shape[1:]),
-        N_PLANES_SAT if cfg.compute_saturation_mask else N_PLANES,
-        dtype=plane_dtype(cfg))
+    with profiling.span("render.raster"):
+        planes = fused_raster_composite(
+            kernel_rungs(rungs, cfg), cfg.image_hw,
+            tuple(textures.raw.shape[1:]),
+            N_PLANES_SAT if cfg.compute_saturation_mask else N_PLANES,
+            dtype=plane_dtype(cfg))
     return fogged, env_save, planes, overflow
 
 
@@ -441,7 +469,8 @@ def _render_frames_xla(bg, depth, drops: DropBatch, textures, bin_edges,
     fogged, env_photo, env_save = frame_background(bg, depth, cfg, pano)
     fields, overflow = drop_fields(env_photo, drops, textures, bin_edges,
                                    cfg, generator, tex_idx, noise_deg)
-    return finalize_frame(bg, fogged, fields, env_save, overflow, cfg)
+    with profiling.span("render.finalize"):
+        return finalize_frame(bg, fogged, fields, env_save, overflow, cfg)
 
 
 def render_frames(bg: torch.Tensor,
@@ -468,14 +497,16 @@ def render_frames(bg: torch.Tensor,
     accumulate by cfg.resolved_composite_mode(): the fused kernel, or
     the golden path's patches and scatter ("xla").
     """
+    profiling.next_step()
     if cfg.resolved_composite_mode() == "xla":
         return _render_frames_xla(bg, depth, drops, textures, bin_edges,
                                   cfg, generator, tex_idx, noise_deg, pano)
     fogged, env_save, planes, overflow = fused_field_planes(
         bg, depth, drops, textures, bin_edges, cfg, generator, tex_idx,
         noise_deg, pano)
-    return finalize_frame(bg, fogged, crop_field_planes(planes, cfg),
-                          env_save, overflow, cfg)
+    with profiling.span("render.finalize"):
+        return finalize_frame(bg, fogged, crop_field_planes(planes, cfg),
+                              env_save, overflow, cfg)
 
 
 def render_frame(bg: torch.Tensor,
@@ -500,6 +531,7 @@ def render_frame(bg: torch.Tensor,
     def one(t):
         return None if t is None else t[None]
 
+    profiling.next_step()
     out = _render_frames_xla(one(bg), one(depth), drops.map(one), textures,
                              bin_edges, cfg, generator, one(tex_idx),
                              one(noise_deg), one(pano))

@@ -21,6 +21,9 @@ asks for the CPU). Its drop source is the weather's particle XML file
 (:mod:`raintpu_torch.particles.xml_io`), packed on the host a batch at
 a time and moved to the device once per batch;
 :mod:`raintpu_torch.render.online` replaces it with the simulator.
+:meth:`RenderJob.run`'s stats give, in ``stage_ms``, the median host ms
+a batch inside each stage span of the render
+(:data:`raintpu_torch.render.frame.STAGES`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import dataclasses
 import os
+import statistics
 import sys
 import time
 from typing import Dict, List, Optional, Sequence
@@ -43,7 +47,8 @@ from raintpu_torch.ops.rasterize import (BucketSpec, RasterConfig,
 from raintpu_torch.particles import xml_io
 from raintpu_torch.particles.schema import pack_drop_batches
 from raintpu_torch.render.camera import RenderSettings, settings_from_dict
-from raintpu_torch.render.frame import PipelineConfig, render_frames
+from raintpu_torch.render.frame import STAGES, PipelineConfig, render_frames
+from raintpu_torch.utils import profiling
 from raintpu_torch.utils.logging import (ProgressScope, natural_listdir,
                                          print_warning)
 
@@ -110,6 +115,7 @@ class RenderJob:
         self._resolve_conflict_strategy()
         self._overflow_total = 0
         self._truncated_total = 0
+        self._batches = 0
 
     # -- conflict handling ------------------------------------------------
     def _existing_output_dirs(self) -> List[str]:
@@ -261,6 +267,7 @@ class RenderJob:
         s = self.spec
         t_start = time.perf_counter()
         stats = {"rendered": 0, "skipped": 0, "failed": 0}
+        self._batches = 0
         self.db = get_streak_database(s.streaks_db, s.norm_coeff,
                                       seed=s.seed)
         textures = texture_bank(self.db, device=self.device)
@@ -296,6 +303,11 @@ class RenderJob:
         stats["elapsed_s"] = round(elapsed, 2)
         if stats["rendered"] and elapsed > 0:
             stats["img_per_s"] = round(stats["rendered"] / elapsed, 2)
+        # The host's time in each stage of a batch's render, from the
+        # spans of the job's batches.
+        stats["stage_ms"] = {
+            name: round(statistics.median(ms), 3) for name in STAGES
+            if (ms := profiling.stage_ms(name, self._batches))}
         if self._truncated_total:
             print_warning(
                 f"{self._truncated_total} drop(s) were truncated at "
@@ -446,6 +458,7 @@ class RenderJob:
 
         drops = self._drops_for_frames(fidx)
         tex_idx, noise_deg = self._frame_draws(drops, edges, fidx)
+        self._batches += 1
         out = render_frames(
             stacked(0), stacked(1), drops, textures, edges, cfg,
             tex_idx=tex_idx, noise_deg=noise_deg,

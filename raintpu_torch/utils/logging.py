@@ -1,10 +1,10 @@
-"""Console logging, progress and stage-timing utilities.
+"""Console logging and progress utilities.
 
 The port's copy of ``raintpu.utils.logging``: the ANSI-tagged messages
 (reference ``my_utils.py:22-31``), the progress bar (``my_utils.py:34-52``),
-natural file ordering (``my_utils.py:19-20``), the nested progress
-line with its remaining-time estimate (``my_utils.py:100-134``) and
-named-stage wall-clock accounting.
+natural file ordering (``my_utils.py:19-20``) and the nested progress
+line with its remaining-time estimate (``my_utils.py:100-134``). The
+render path's stage times are ``utils.profiling``'s spans.
 """
 
 from __future__ import annotations
@@ -104,31 +104,3 @@ class ProgressScope:
         eta_str = f"{eta // 60:02.0f}m" if eta is not None else "--"
         return "  ".join(parts) + f"   >  ETA {eta_str}"
 
-
-class StageTimer:
-    """Lightweight named-stage wall-clock accounting."""
-
-    def __init__(self):
-        self.totals = {}
-        self.counts = {}
-
-    def add(self, name: str, seconds: float) -> None:
-        self.totals[name] = self.totals.get(name, 0.0) + seconds
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def timeit(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *a):
-                timer.add(name, time.perf_counter() - self.t0)
-
-        return _Ctx()
-
-    def report(self) -> str:
-        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
-        return "\n".join(
-            f"  {k:<24s} {v:8.3f}s  x{self.counts[k]}" for k, v in rows)

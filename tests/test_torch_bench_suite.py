@@ -11,12 +11,16 @@ and the fitted ladder are equal; one step's scalar agrees within rtol
 renders through its XLA path on the CPU, the port through its fused
 path's plain version: the fused path's own bar against the XLA path,
 with test_torch_golden's rule for ALPHA_CUTOFF flips) and the saved
-envmap within 1e-5.
+envmap within 1e-5. The span ring keeps its bound, its thread-local
+parents and its step stamps, and enters no profiler range without a
+profiler.
 """
 
+import collections
 import functools
 import io
 import json
+import threading
 import types
 from contextlib import redirect_stdout
 
@@ -25,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from raintpu.ops import rasterize as jrz
 from raintpu.physics import simulator as jsim
@@ -337,12 +342,145 @@ def test_device_trace_and_summary_on_the_cpu(tmp_path):
     assert s["syncs"] == {}
 
 
-def test_timed_scalar_returns_ms():
-    calls = []
 
-    def fn(x):
-        calls.append(1)
-        return (x * 2).sum()
+@pytest.fixture
+def ring(monkeypatch):
+    """A fresh span ring of 6 spans."""
+    fresh = collections.deque(maxlen=6)
+    monkeypatch.setattr(profiling, "RING", fresh)
+    return fresh
 
-    ms = profiling.timed_scalar(fn, torch.ones(8), iters=3, warmup=2)
-    assert ms > 0 and len(calls) == 5
+
+def test_span_ring_is_bounded_and_stamps_steps(ring):
+    steps = []
+    for _ in range(4):
+        steps.append(profiling.next_step())
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                pass
+    assert steps == list(range(steps[0], steps[0] + 4))
+    assert len(ring) == 6
+    assert [(n, p, st) for n, p, st, _, _ in ring] == [
+        (n, p, st) for st in steps[1:]
+        for n, p in (("inner", "outer"), ("outer", None))]
+    for _, _, _, t0, t1 in ring:
+        assert 0 < t0 <= t1
+    # An inner span lies within its outer one.
+    assert ring[4][3] >= ring[5][3] and ring[4][4] <= ring[5][4]
+
+
+def test_span_parents_are_thread_local(ring):
+    both_open = threading.Barrier(2, timeout=10)
+
+    def work(tag):
+        with profiling.span("outer-" + tag):
+            both_open.wait()
+            with profiling.span("inner-" + tag):
+                both_open.wait()
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in "ab"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+        assert not t.is_alive()
+    parents = {n: p for n, p, _, _, _ in ring}
+    assert parents == {"outer-a": None, "outer-b": None,
+                       "inner-a": "outer-a", "inner-b": "outer-b"}
+
+
+def test_span_enters_a_profiler_range_only_under_a_profiler(ring,
+                                                            monkeypatch,
+                                                            tmp_path):
+    entered = []
+
+    class Range:
+        def __init__(self, name):
+            entered.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", Range)
+    with profiling.span("render.quiet"):
+        torch.ones(4).sum()
+    assert entered == [] and ring[-1][0] == "render.quiet"
+    with profiling.device_trace(str(tmp_path), device="cpu"):
+        with profiling.span("render.traced"):
+            torch.ones(4).sum()
+    assert entered == ["render.traced"]
+
+
+def test_stage_ms_reads_the_last_steps(ring):
+    def add(name, step, ms):
+        ring.append((name, None, step, 0, int(ms * 1e6)))
+
+    add("a", 1, 1.0)
+    add("b", 1, 5.0)
+    add("a", 2, 2.0)
+    add("a", 2, 0.5)
+    add("b", 3, 7.0)
+    # Steps 1-3 whole; a per step, the last two steps, then all three.
+    assert profiling.stage_ms("a", 2) == [2.5, 0.0]
+    assert profiling.stage_ms("a", 5) == [1.0, 2.5, 0.0]
+    assert profiling.stage_ms("b", 1) == [7.0]
+    assert profiling.stage_ms("a", 0) == []
+    # A full ring may have lost part of its oldest step: it is left out.
+    add("a", 4, 3.0)
+    assert len(ring) == ring.maxlen
+    assert profiling.stage_ms("a", 9) == [2.5, 0.0, 3.0]
+
+
+class _Event(types.SimpleNamespace):
+    """A profiler event as trace_summary reads one."""
+
+    def __init__(self, name, start, end, device="cpu", parent=None, id=0,
+                 kernels=()):
+        super().__init__(
+            name=name, id=id, cpu_parent=parent, kernels=list(kernels),
+            is_user_annotation=False,
+            device_type=(DeviceType.CUDA if device == "cuda"
+                         else DeviceType.CPU),
+            time_range=types.SimpleNamespace(
+                start=start, end=end, elapsed_us=lambda: end - start))
+
+
+def test_trace_summary_attributes_device_operations_to_stages(monkeypatch):
+    """A CUDA operation belongs to the host call it is linked to, and so
+    to that call's innermost span; a runtime call whose id collides with
+    a host operation's does not count its records again; operations no
+    span encloses are OUTSIDE; the rows sum to the operations a step."""
+    monkeypatch.setattr(profiling, "SPAN_NAMES", {"render.a", "render.b"})
+    kern = collections.namedtuple(
+        "Kernel", "name device duration")
+    events, device = [], []
+    for step in range(2):
+        t = 1000 * step
+        a = _Event("render.a", t, t + 100)
+        b = _Event("render.b", t + 100, t + 300)
+        mul = _Event("aten::mul", t + 10, t + 20, parent=a, id=10 + step,
+                     kernels=[kern("k_mul", 0, 5.0)])
+        add = _Event("aten::add", t + 110, t + 120, parent=b, id=20 + step,
+                     kernels=[kern("k_add", 0, 7.0), kern("k_add", 0, 7.0)])
+        # A runtime call keyed by the runtime's own correlation id, which
+        # equals aten::add's.
+        sync = _Event("cudaStreamSynchronize", t + 40, t + 50, parent=a,
+                      id=20 + step, kernels=list(add.kernels))
+        device += [_Event("k_mul", t + 30, t + 35, "cuda"),
+                   _Event("k_add", t + 130, t + 137, "cuda"),
+                   _Event("k_add", t + 140, t + 147, "cuda"),
+                   _Event("k_fill", t + 500, t + 502, "cuda")]
+        events += [a, b, mul, add, sync]
+    timeline = sorted(events + device, key=lambda e: e.time_range.start)
+    prof = types.SimpleNamespace(events=lambda: timeline)
+    s = profiling.trace_summary(prof)
+    st = s["stages"]
+    assert s["device"] == "cuda" and s["n_ops"] == 8
+    assert st["render.a"] == dict(ops=1.0, busy_ms=0.005, host_ms=0.1)
+    assert st["render.b"] == dict(ops=2.0, busy_ms=0.014, host_ms=0.2)
+    assert st[profiling.OUTSIDE] == pytest.approx(
+        dict(ops=1.0, busy_ms=0.002, host_ms=0.0))
+    assert sum(r["ops"] for r in st.values()) * 2 == s["n_ops"]

@@ -211,9 +211,13 @@ def test_port_job_resumes_and_keys_frames(dataset):
     _, PortJob = _jobs(drops)
     full = PortJob(_spec(tpipe, tmp, "port_keys")).run()
     assert full["rendered"] == N_FRAMES
+    # The host's median ms a batch in each stage of the render.
+    assert list(full["stage_ms"]) == list(tpipe.STAGES)
+    assert all(ms > 0 for ms in full["stage_ms"].values())
     again = PortJob(_spec(tpipe, tmp, "port_keys",
                           conflict_strategy="skip")).run()
     assert again["rendered"] == 0 and again["skipped"] == N_FRAMES
+    assert again["stage_ms"] == {}
     one = PortJob(_spec(tpipe, tmp, "port_window", frame_start=1,
                         frame_end=2)).run()
     assert one["rendered"] == 1

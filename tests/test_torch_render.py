@@ -7,8 +7,15 @@ rainy_image agree within atol 2e-4 — the fused path's own bar against
 the XLA path (tests/test_pallas_batched.py), since the port evaluates
 the kernel's formula over the XLA path's (ph, pw) windows — and the
 per-rung overflow counts are equal.
+
+A render step times its stages as spans (``utils.profiling.span``):
+each top-level stage once a step, in order, the prep's parts inside
+render.prep, and in a CPU profile each stage a top-level host range
+around the operations it issues, which trace_summary's ``stages``
+attribute to it.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -27,6 +34,7 @@ from raintpu_torch.data.textures import texture_bank as port_texture_bank
 from raintpu_torch.ops import rasterize as trz
 from raintpu_torch.physics import simulator as tsim
 from raintpu_torch.render import frame as tframe
+from raintpu_torch.utils import profiling
 from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 B = 2
@@ -156,3 +164,115 @@ def test_render_optional_outputs(field, value):
         # Each drop adds clip(alpha * color, 0, 1) only where its alpha
         # is nonzero.
         assert bool((sat.sum(-1)[base.rain_mask == 0] == 0).all())
+
+
+def _spanned_scene(mode):
+    """A 96x48 two-frame scene whose render opens the spans, and its
+    config under composite_mode ``mode``."""
+    w, h = 96, 48
+    _, tcfg = _configs(w, h, 4, 32)
+    gen = torch.Generator().manual_seed(3)
+    ones = torch.ones(B)
+    drops = tsim.simulate_frames(
+        gen, tsim.SimConfig(image_wh=(w, h), focal_px=(300.0, 300.0),
+                            exposure_s=2e-3, capacity=64, z_max=5.0),
+        ones * 150.0, ones * 5.0, ones * 2e-3, ones)
+    db = procedural_streak_database()
+    args = (torch.rand(B, h, w, 3, generator=gen),
+            torch.rand(B, h, w, generator=gen) * 40 + 3, drops,
+            port_texture_bank(db, device="cpu"),
+            torch.as_tensor(db.bin_edges))
+    tex_idx = trz.select_textures(drops, args[-1], gen)
+    return args, dataclasses.replace(tcfg, composite_mode=mode), tex_idx
+
+
+PREP_PARTS = ("render.prep.photometry", "render.prep.geometry",
+              "render.prep.rungs")
+
+
+@pytest.mark.parametrize("mode", ["fused", "xla"])
+def test_render_step_opens_each_stage_once(mode, monkeypatch):
+    """Fused and golden path: one call is one render step, which opens
+    each top-level stage once, in STAGES' order and with no parent, and
+    the prep's three parts inside render.prep; every span carries the
+    step's number."""
+    monkeypatch.setattr(profiling, "RING", collections.deque(maxlen=64))
+    args, cfg, tex_idx = _spanned_scene(mode)
+    step = profiling.next_step() + 1
+    tframe.render_frames(*args, cfg, tex_idx=tex_idx)
+    spans = list(profiling.RING)
+    assert {s[2] for s in spans} == {step}
+    top = [s[0] for s in spans if s[1] is None]
+    assert tuple(top) == tframe.STAGES
+    inner = [(s[0], s[1]) for s in spans if s[1] is not None]
+    assert inner == [(n, "render.prep") for n in PREP_PARTS]
+    for name, _, _, t0, t1 in spans:
+        assert t1 >= t0, name
+    # Siblings follow one another.
+    ends = [s[4] for s in spans if s[1] is None]
+    starts = [s[3] for s in spans if s[1] is None]
+    assert all(e <= s for e, s in zip(ends, starts[1:]))
+
+
+def test_render_frame_counts_a_step(monkeypatch):
+    """render_frame, the golden path's one frame, is a render step of
+    its own with the same stages."""
+    monkeypatch.setattr(profiling, "RING", collections.deque(maxlen=64))
+    args, cfg, tex_idx = _spanned_scene("fused")
+    bg, depth, drops, bank, edges = args
+    step = profiling.next_step() + 1
+    tframe.render_frame(bg[0], depth[0], drops.map(lambda t: t[0]), bank,
+                        edges, cfg, tex_idx=tex_idx[0])
+    assert profiling.next_step() == step + 1
+    assert tuple(s[0] for s in profiling.RING if s[1] is None) == (
+        tframe.STAGES)
+    assert {s[2] for s in profiling.RING} == {step}
+
+
+def test_stage_spans_in_a_cpu_profile(tmp_path):
+    """Under a CPU profile each stage is a top-level host range of its
+    own name, not a user annotation, around the aten operations it
+    issued; trace_summary's ``stages`` give each span's operations and
+    host ms a step over two steps, and account for every operation."""
+    args, cfg, tex_idx = _spanned_scene("fused")
+    with profiling.device_trace(str(tmp_path), device="cpu") as prof:
+        for _ in range(2):
+            tframe.render_frames(*args, cfg, tex_idx=tex_idx)
+    events = prof.events()
+    spans = [e for e in events if e.name in profiling.SPAN_NAMES]
+    counts = collections.Counter(e.name for e in spans)
+    assert counts == {n: 2 for n in tframe.STAGES + PREP_PARTS}
+    for e in spans:
+        assert not e.is_user_annotation
+        assert (e.cpu_parent is None) == (e.name in tframe.STAGES)
+        if e.name in PREP_PARTS:
+            assert e.cpu_parent.name == "render.prep"
+    aten = [e for e in events if e.name.startswith("aten::")]
+    assert aten
+    for e in aten:
+        top = e
+        while top.cpu_parent is not None:
+            top = top.cpu_parent
+        assert top.name in tframe.STAGES, e.name
+        assert top.time_range.start <= e.time_range.start
+        assert e.time_range.end <= top.time_range.end
+
+    s = profiling.trace_summary(prof)
+    st = s["stages"]
+    assert set(tframe.STAGES + PREP_PARTS) <= set(st)
+    # A CPU profile's operations are its top-level host ranges, here the
+    # stages themselves: one a stage a step, none outside a span.
+    assert s["device"] == "cpu" and s["n_ops"] == 2 * len(tframe.STAGES)
+    for name in tframe.STAGES:
+        assert st[name]["ops"] == 1.0
+        assert st[name]["busy_ms"] == pytest.approx(st[name]["host_ms"])
+        assert st[name]["host_ms"] > 0
+    for name in PREP_PARTS:
+        assert st[name]["ops"] == 0.0 and st[name]["host_ms"] > 0
+    assert sum(st["render.prep." + p]["host_ms"]
+               for p in ("photometry", "geometry", "rungs")) <= (
+        st["render.prep"]["host_ms"])
+    assert st[profiling.OUTSIDE]["ops"] == 0.0
+    assert sum(r["ops"] for r in st.values()) * 2 == s["n_ops"]
+    # The idle gaps (none on a CPU timeline) are named by these ranges.
+    assert {n for g in s["gaps"] for n, _ in g["host"]} <= set(tframe.STAGES)
