@@ -9,6 +9,8 @@ drop's color factors as ``gray(px) * luminance_gain * base_rgb(x, y)``
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # XYZ_j = sum_k rgb_k * RGB2XYZ[k, j] / FACTOR
@@ -30,13 +32,23 @@ XYZ2RGB = (
 GRAY_TO_Y = (RGB2XYZ[0][1] + RGB2XYZ[1][1] + RGB2XYZ[2][1]) / FACTOR
 
 
+@functools.lru_cache(maxsize=None)
+def device_constant(value, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """``torch.tensor(value, dtype=dtype, device=device)``, made once per
+    (value, dtype, device) and shared by every caller, who must not
+    write to it: a copy from the host to a CUDA device waits for its
+    stream, and a CUDA graph cannot capture one."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
 def rgb_to_xyY(rgb: torch.Tensor, nan_to_zero: bool = True) -> torch.Tensor:
     """RGB -> xyY. Shape (..., 3) -> (..., 3) with channels (x, y, Y).
 
     x = X/(X+Y+Z) is NaN for black pixels; with ``nan_to_zero`` (the
     reference's call-site replacement) those chromaticities are 0.
     """
-    mat = torch.tensor(RGB2XYZ, dtype=rgb.dtype, device=rgb.device)
+    mat = device_constant(RGB2XYZ, rgb.dtype, rgb.device)
     xyz = (rgb @ mat) / FACTOR
     s = xyz[..., 0] + xyz[..., 1] + xyz[..., 2]
     if nan_to_zero:
@@ -55,7 +67,7 @@ def xyY_to_rgb(xyY: torch.Tensor) -> torch.Tensor:
     x, y, Y = xyY[..., 0], xyY[..., 1], xyY[..., 2]
     X = (Y * x) / y
     Z = (Y * (1.0 - x - y)) / y
-    mat = torch.tensor(XYZ2RGB, dtype=xyY.dtype, device=xyY.device)
+    mat = device_constant(XYZ2RGB, xyY.dtype, xyY.device)
     return torch.stack([X, Y, Z], dim=-1) @ mat
 
 

@@ -18,6 +18,7 @@ Frames may carry a leading batch dimension throughout.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -109,6 +110,15 @@ def _cone_sums(p: torch.Tensor, n: torch.Tensor, env: EnvFeatures,
                         env.feats)
 
 
+@functools.lru_cache(maxsize=None)
+def _cos_half_angle(fov_deg: float, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """cos(fov/2) of the cone, computed on ``device`` in ``dtype`` once
+    per (fov, dtype, device) (see ``color.device_constant``)."""
+    return torch.cos(torch.deg2rad(
+        color_ops.device_constant(fov_deg / 2.0, dtype, device)))
+
+
 def drop_fov_stats(world_pos: torch.Tensor,
                    env: EnvFeatures,
                    *,
@@ -128,8 +138,7 @@ def drop_fov_stats(world_pos: torch.Tensor,
     norm = torch.sqrt((p * p).sum(-1, keepdim=True))
     n = p / torch.clamp_min(norm, 1e-12)           # cone axis per drop
 
-    cos_t = torch.cos(torch.deg2rad(
-        torch.tensor(fov_deg / 2.0, dtype=p.dtype, device=p.device)))
+    cos_t = _cos_half_angle(float(fov_deg), p.dtype, p.device)
     R = float(sphere_radius)
 
     n_drops = p.shape[-2]

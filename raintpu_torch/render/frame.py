@@ -40,6 +40,12 @@ render.envmap, render.prep (with render.prep.photometry,
 render.prep.geometry and render.prep.rungs inside it), render.raster
 (the kernel's launch, or the golden path's scatter composite) and
 render.finalize, each opened once a step.
+
+The fused path replays its per-drop prep as a CUDA graph where the
+call's inputs allow it (:func:`prep_graph_engages`, :data:`PREP_GRAPHS`):
+then render.prep holds render.prep.replay, the copies in and the
+graph's launch, and its three children open only in the calls that run
+the prep eagerly or capture it.
 """
 
 from __future__ import annotations
@@ -60,12 +66,15 @@ from raintpu_torch.ops.fused_raster import (N_PLANES, N_PLANES_SAT,
                                             fused_raster_composite)
 from raintpu_torch.particles.schema import DropBatch
 from raintpu_torch.render.camera import RenderSettings
-from raintpu_torch.utils import profiling
+from raintpu_torch.utils import graphs, profiling
 
 # The render step's top-level stage spans, in the order a step opens
 # them.
 STAGES = ("render.fog", "render.envmap", "render.prep", "render.raster",
           "render.finalize")
+# fused_field_planes' per-drop prep, captured as CUDA graphs: one a
+# process for each of up to graphs.KEYS input signatures.
+PREP_GRAPHS = graphs.GraphCache("render.prep.replay")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,22 +329,68 @@ def drop_fused_params(env_rgb: Optional[torch.Tensor], drops: DropBatch,
     'naive_db' strategies the gains are ones and nothing is defocused
     (``env_rgb`` is not read). The saturation rows carry the drops'
     pre-tau colors when cfg.compute_saturation_mask, else 0.
-    Returns (list of rasterize.RungParams, overflow (B, n_buckets))."""
-    tex_hw = tuple(textures.raw.shape[1:])
+    Returns (list of rasterize.RungParams, overflow (B, n_buckets)),
+    the caller's own: this call always runs eagerly."""
     with profiling.span("render.prep"):
-        gains, tex_idx, geom_d, lo, add_rgb = _drop_prep(
-            env_rgb, drops, tex_hw, bin_edges, cfg, generator, tex_idx,
-            noise_deg)
-        with profiling.span("render.prep.rungs"):
-            rungs = raster_ops.raster_params_frame(
-                drops, geom_d, tex_hw, tex_idx, cfg.image_wh, cfg.raster,
-                apply_defocus=cfg.settings.rendering_strategy is None,
-                fourier=(textures.ay, textures.bx))
-            sat_rgb = gains if cfg.compute_saturation_mask else None
-            for rung in rungs:
-                raster_ops.fill_blend_rows(rung, lo, add_rgb, sat_rgb)
-            overflow = torch.stack([r.overflow for r in rungs], dim=-1)
+        return _fused_params(env_rgb, drops, textures, bin_edges, cfg,
+                             generator, tex_idx, noise_deg)
+
+
+def _fused_params(env_rgb, drops: DropBatch, textures, bin_edges, cfg,
+                  generator, tex_idx, noise_deg):
+    """:func:`drop_fused_params` inside its render.prep span."""
+    tex_hw = tuple(textures.raw.shape[1:])
+    gains, tex_idx, geom_d, lo, add_rgb = _drop_prep(
+        env_rgb, drops, tex_hw, bin_edges, cfg, generator, tex_idx,
+        noise_deg)
+    with profiling.span("render.prep.rungs"):
+        rungs = raster_ops.raster_params_frame(
+            drops, geom_d, tex_hw, tex_idx, cfg.image_wh, cfg.raster,
+            apply_defocus=cfg.settings.rendering_strategy is None,
+            fourier=(textures.ay, textures.bx))
+        sat_rgb = gains if cfg.compute_saturation_mask else None
+        for rung in rungs:
+            raster_ops.fill_blend_rows(rung, lo, add_rgb, sat_rgb)
+        overflow = torch.stack([r.overflow for r in rungs], dim=-1)
     return rungs, overflow
+
+
+def prep_graph_engages(drops: DropBatch, cfg: PipelineConfig,
+                       tex_idx: Optional[torch.Tensor],
+                       noise_deg: Optional[torch.Tensor]) -> bool:
+    """Whether :func:`fused_field_planes` replays its prep as a CUDA
+    graph: on a CUDA device, with the draws given as data (``tex_idx``,
+    and ``noise_deg`` where the settings ask for streak noise), so that
+    no generator draws inside a graph."""
+    st = cfg.settings
+    return (drops.valid.device.type == "cuda" and tex_idx is not None
+            and (noise_deg is not None
+                 or st.noise_scale * st.noise_std == 0.0))
+
+
+def _replayed_fused_params(env_rgb, drops: DropBatch, textures, bin_edges,
+                           cfg: PipelineConfig, generator, tex_idx,
+                           noise_deg):
+    """:func:`_fused_params`, replayed from :data:`PREP_GRAPHS` where
+    :func:`prep_graph_engages`. The rungs' operands are then the graph's
+    own, overwritten by its next replay; the overflow is a copy."""
+    if not prep_graph_engages(drops, cfg, tex_idx, noise_deg):
+        return _fused_params(env_rgb, drops, textures, bin_edges, cfg,
+                             generator, tex_idx, noise_deg)
+    args = (env_rgb, tex_idx, noise_deg) + tuple(
+        getattr(drops, f.name) for f in dataclasses.fields(drops))
+    read = (textures.raw, textures.ay, textures.bx, bin_edges)
+    key = (drops.valid.device, cfg, torch.backends.cuda.matmul.allow_tf32,
+           tuple(None if a is None else (a.shape, a.dtype) for a in args),
+           tuple(map(id, read)))
+
+    def prep(env_rgb, tex_idx, noise_deg, *columns):
+        return _fused_params(env_rgb, DropBatch(*columns), textures,
+                             bin_edges, cfg, None, tex_idx, noise_deg)
+
+    rungs, overflow = PREP_GRAPHS(key, prep, args, drops.valid.device,
+                                  held=read)
+    return rungs, overflow.clone()
 
 
 def drop_patches(env_rgb: Optional[torch.Tensor], drops: DropBatch,
@@ -425,11 +480,13 @@ def fused_field_planes(bg, depth, drops: DropBatch, textures, bin_edges,
     [, sat_r, sat_g, sat_b]) — 8 planes when
     cfg.compute_saturation_mask — of :func:`plane_dtype`, and
     image-sized already (the JAX package's are padded for TPU window
-    tiling)."""
+    tiling). The per-drop prep is :func:`drop_fused_params`'s, replayed
+    as a CUDA graph where :func:`prep_graph_engages`."""
     fogged, env_photo, env_save = frame_background(bg, depth, cfg, pano)
-    rungs, overflow = drop_fused_params(env_photo, drops, textures,
-                                        bin_edges, cfg, generator, tex_idx,
-                                        noise_deg)
+    with profiling.span("render.prep"):
+        rungs, overflow = _replayed_fused_params(
+            env_photo, drops, textures, bin_edges, cfg, generator, tex_idx,
+            noise_deg)
     with profiling.span("render.raster"):
         planes = fused_raster_composite(
             kernel_rungs(rungs, cfg), cfg.image_hw,

@@ -753,3 +753,192 @@ def test_bench_guard_launches_each_kernel_once(cuda):
     mass, launches = bench.guard(bench.workload(cuda))
     assert launches == {"raster": 1, "blur": 1}
     assert mass > bench.MIN_MASK_MASS
+
+
+def _eager_render(batch, bank, edges, cfg):
+    """The eager prep, raster and finalize: (planes, FrameOutput)."""
+    fogged, env_photo, env_save = frame.frame_background(
+        batch["bg"], batch["depth"], cfg)
+    rungs, overflow = frame.drop_fused_params(
+        env_photo, batch["drops"], bank, edges, cfg,
+        tex_idx=batch["tex_idx"])
+    planes = tfr.fused_raster_composite(
+        frame.kernel_rungs(rungs, cfg), cfg.image_hw,
+        tuple(bank.raw.shape[1:]),
+        tfr.N_PLANES_SAT if cfg.compute_saturation_mask else tfr.N_PLANES,
+        dtype=frame.plane_dtype(cfg))
+    return planes, frame.finalize_frame(
+        batch["bg"], fogged, frame.crop_field_planes(planes, cfg), env_save,
+        overflow, cfg)
+
+
+def _graphed_render(batch, bank, edges, cfg):
+    """render_frames' fused path, its prep replayed where it engages:
+    (planes, FrameOutput)."""
+    frame.profiling.next_step()
+    fogged, env_save, planes, overflow = frame.fused_field_planes(
+        batch["bg"], batch["depth"], batch["drops"], bank, edges, cfg,
+        tex_idx=batch["tex_idx"])
+    return planes, frame.finalize_frame(
+        batch["bg"], fogged, frame.crop_field_planes(planes, cfg), env_save,
+        overflow, cfg)
+
+
+def _assert_renders_equal(got, want):
+    (gp, go), (wp, wo) = got, want
+    assert torch.equal(gp, wp)
+    for name in ("rainy_image", "rain_mask", "overflow"):
+        assert torch.equal(getattr(go, name), getattr(wo, name)), name
+
+
+@pytest.fixture
+def prep_graphs(monkeypatch):
+    """A fresh PREP_GRAPHS for the test."""
+    from raintpu_torch.utils import graphs
+
+    cache = graphs.GraphCache("render.prep.replay")
+    monkeypatch.setattr(frame, "PREP_GRAPHS", cache)
+    return cache
+
+
+def _kitti_pool(dev, batches=8, batch=8):
+    """``batches`` KITTI batches (1242x375, 10 mm/hr, ``batch`` frames
+    each) over one bank, edges and configuration, each batch with its
+    own drops and texture picks."""
+    from raintpu_torch.ops.rasterize import select_textures
+
+    pool = []
+    scene = None
+    for i in range(batches):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        s = bench.workload(dev, batch=batch, generator=gen)
+        scene = scene or s
+        pool.append(dict(bg=s.bg * (0.5 + 0.05 * i), depth=s.depth,
+                         drops=s.drops,
+                         tex_idx=select_textures(s.drops, scene.edges, gen)))
+    return pool, scene.bank, scene.edges, scene.cfg
+
+
+def _cut_ladder(cfg):
+    """``cfg`` with every rung's capacity cut to a quarter of its own, so
+    that every batch overflows."""
+    return dataclasses.replace(cfg, raster=dataclasses.replace(
+        cfg.raster, buckets=tuple(
+            dataclasses.replace(b, capacity=max(2, b.capacity // 4))
+            for b in cfg.raster.buckets)))
+
+
+@pytest.mark.gpu
+def test_prep_graph_replays_equal_the_eager_render(cuda, prep_graphs):
+    """Two passes over an 8-batch KITTI pool, first with the hand ladder
+    and then with one whose rungs overflow: the first call of each
+    configuration runs eagerly, the second captures, the rest replay;
+    planes, image, mask and overflow equal to the eager render's, and the
+    outputs kept from the first pass unchanged by the second."""
+    pool, bank, edges, cfg = _kitti_pool(cuda)
+    for c in (cfg, _cut_ladder(cfg)):
+        want = [_eager_render(b, bank, edges, c) for b in pool]
+        kept = [_graphed_render(b, bank, edges, c) for b in pool]
+        again = [_graphed_render(b, bank, edges, c) for b in pool]
+        torch.cuda.synchronize()
+        for k, a, w in zip(kept, again, want):
+            _assert_renders_equal(k, w)
+            _assert_renders_equal(a, w)
+        assert float(want[0][1].rain_mask.sum()) > 1.0
+    assert prep_graphs.captures == 2
+    cut = [w[1].overflow for w in want]
+    assert all(int(o.sum()) > 0 for o in cut)
+    assert not all(torch.equal(cut[0], o) for o in cut[1:])
+    # The cut ladder's two passes: eager, then a replay in every step.
+    steps = frame.profiling.stage_ms("render.prep.replay", 2 * len(pool))
+    assert steps[0] == 0 and all(ms > 0 for ms in steps[1:])
+
+
+@pytest.mark.gpu
+def test_prep_graph_replays_the_rig(cuda, prep_graphs):
+    """One nuScenes rig batch (6 x 1600x900, 100 mm/hr, the whole
+    population): eager, captured and replayed, then replayed again,
+    equal to the eager render each time."""
+    from raintpu_torch.ops.rasterize import select_textures
+    from raintpu_torch.tools import stage_profile
+
+    w = stage_profile.workload(stage_profile.parse_args(
+        ["--nuscenes", "--device", "cuda"]))
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    batch = dict(bg=w["bg"], depth=w["depth"], drops=w["drops"],
+                 tex_idx=select_textures(w["drops"], w["edges"], gen))
+    want = _eager_render(batch, w["tex"], w["edges"], w["cfg"])
+    for _ in range(4):
+        _assert_renders_equal(
+            _graphed_render(batch, w["tex"], w["edges"], w["cfg"]), want)
+    assert prep_graphs.captures == 1
+    assert int(want[1].overflow.sum()) == 0
+    assert float(want[1].rain_mask.sum()) > 1.0
+
+
+@pytest.mark.gpu
+def test_prep_graph_recaptures_for_a_new_config_or_bank(cuda, prep_graphs):
+    """A changed PipelineConfig (the saturation planes) or texture bank
+    (a copy of its tensors) is a graph of its own, equal to the eager
+    render; the first graph still replays right after."""
+    pool, bank, edges, cfg = _kitti_pool(cuda, batches=2)
+    sat = dataclasses.replace(cfg, compute_saturation_mask=True)
+    copy = bank.to("cpu").to(cuda)
+    n = 0
+    for bk, c in ((bank, cfg), (bank, sat), (copy, cfg), (bank, cfg)):
+        for b in pool + pool:
+            _assert_renders_equal(_graphed_render(b, bk, edges, c),
+                                  _eager_render(b, bk, edges, c))
+        n += 1
+        assert prep_graphs.captures == min(n, 3)
+
+
+@pytest.mark.gpu
+def test_prep_graph_is_not_captured_under_a_profiler(cuda, prep_graphs):
+    """Under torch.profiler the prep runs eagerly until a graph exists;
+    the capture follows the profile, and a replay under a profiler is
+    equal to the eager render."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pool, bank, edges, cfg = _kitti_pool(cuda, batches=2)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        for b in pool + pool:
+            _assert_renders_equal(_graphed_render(b, bank, edges, cfg),
+                                  _eager_render(b, bank, edges, cfg))
+    assert prep_graphs.captures == 0
+    _graphed_render(pool[0], bank, edges, cfg)
+    assert prep_graphs.captures == 1
+    with profile(activities=acts) as prof:
+        got = _graphed_render(pool[1], bank, edges, cfg)
+        torch.cuda.synchronize()
+    _assert_renders_equal(got, _eager_render(pool[1], bank, edges, cfg))
+    assert prep_graphs.captures == 1
+    # The replay's kernels are in the profile.
+    assert sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()) > 100
+
+
+@pytest.mark.gpu
+def test_prep_waits_for_nothing(cuda):
+    """Once its constants are made, the eager prep of a KITTI batch
+    issues no synchronize and no copy to the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raintpu_torch.utils import profiling
+
+    pool, bank, edges, cfg = _kitti_pool(cuda, batches=1)
+    b = pool[0]
+    _, env, _ = frame.frame_background(b["bg"], b["depth"], cfg)
+    frame.drop_fused_params(env, b["drops"], bank, edges, cfg,
+                            tex_idx=b["tex_idx"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        frame.drop_fused_params(env, b["drops"], bank, edges, cfg,
+                                tex_idx=b["tex_idx"])
+        torch.cuda.synchronize()
+    syncs = profiling.trace_summary(prof)["syncs"]
+    # The block's own closing synchronize aside.
+    syncs.pop("cudaDeviceSynchronize", None)
+    assert not syncs, syncs
