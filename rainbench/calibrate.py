@@ -31,16 +31,17 @@ def reading(cell, seed: int, control=None) -> dict:
     t = time.perf_counter()
     pool, prog, kept = harness.setup(cell, seed, "cuda", control)
     ladder = prog.ladder()
+    judged, truncated = prog.judged(), prog.truncated()
     del prog
     t_setup = time.perf_counter() - t
-    verdict = check.judge(cell, pool, kept, seed)
+    verdict = check.judge(cell, judged, kept, seed, truncated)
     torch.cuda.synchronize()
     rec = {"card": torch.cuda.get_device_name(), "seed": seed,
            "control": control,
            "correct": verdict.correct if cell.limits["numbers"] else None,
            **verdict.numbers, "program_ladder": ladder, "setup_s": t_setup,
            "reference_s": time.perf_counter() - t - t_setup}
-    del pool, kept
+    del pool, judged, kept
     return rec
 
 

@@ -16,6 +16,23 @@ the same inputs in blocks, once the program is freed. The numbers:
 - ``frames``: the frames judged; ``overflow_frames``: the kept frames
   that dropped a drop.
 
+Under the online source (:mod:`rainbench.harness`'s ``OnlineDrops``)
+the reference renders the drops and picks that each kept output's step
+made: the program's own state. So every frame of the kept batches is
+also held, by :func:`law`, to what the benchmark's copy of the law
+draws on that frame's generator:
+
+- ``sim_mismatch``: drops that differ between the program's valid
+  drops and the copy's (each valid drop's fields compared exactly, in
+  slot order, plus the difference of the two counts);
+- ``picks_mismatch``: valid drops whose texture pick differs from the
+  copy of the job's draw;
+- ``truncated``: drops the program's own count found lost to the
+  simulation capacity, over every step of the run;
+- ``law_frames``: the frames compared; ``law_failed_frames``: those
+  with a mismatch or whose population the copy finds over the
+  simulation capacity.
+
 The cell's limits file says which numbers are held, each to its limit:
 a number above its limit, or not finite, makes the run not correct. A
 frame whose own largest gap of a held ``*_max`` number is over its
@@ -64,9 +81,53 @@ def sample(pool: inputs.Pool, batches: int, per_batch: int, seed: int):
     return out
 
 
-def numbers(cell: spec.Cell, pool: inputs.Pool, kept: list, seed: int):
+def law(cell: spec.Cell, pool: inputs.Pool, seed: int) -> dict:
+    """The online source's drops and picks of every frame of ``pool``
+    (the kept steps') against the copy of the simulator's law and of the
+    job's picks on the same frame's generators: the copy simulates each
+    frame on its own at the simulation capacity, as the program does,
+    so it draws the same numbers, and the two agree exactly."""
+    t = cell.traffic
+    dev = pool.bg.device
+    cam = inputs.Camera.from_settings(cell.config["settings"])
+    cap = int(t["sim_capacity"])
+    rate = torch.full((1,), float(t["fallrate_mm_hr"]), dtype=torch.float32,
+                      device=dev)
+    edges = torch.as_tensor(pool.bin_edges, device=dev)
+    n = pool.drops["valid"].shape[-1]
+    sims, picks, cut = [], [], []
+    for j in range(pool.batches):
+        for b, f in enumerate(inputs.online_frames(t, j)):
+            fields, count = inputs.simulate(
+                inputs.generator(seed, f, dev), cam, cap, rate,
+                pool.speeds_mps[j, b:b + 1])
+            cut.append(int(count.max()) > cap)
+            mine = inputs.compact(fields, cap)
+            theirs = {k: v[j, b][None] for k, v in pool.drops.items()}
+            packed = inputs.compact(theirs, n)
+            n_mine = int(mine["valid"].sum())
+            n_prog = int(packed["valid"].sum())
+            k = min(n_mine, n_prog)
+            differ = torch.zeros(k, dtype=torch.bool, device=dev)
+            for name, a in mine.items():
+                if name != "valid":
+                    differ |= (a[0, :k] != packed[name][0, :k]).reshape(
+                        k, -1).any(-1)
+            sims.append(abs(n_mine - n_prog) + int(differ.sum()))
+            want = inputs.job_picks(seed, f, theirs["ratio"][0], edges)
+            picks.append(int(((want != pool.tex_idx[j, b])
+                              & theirs["valid"][0]).sum()))
+    return {"sim_mismatch": sum(sims), "picks_mismatch": sum(picks),
+            "law_frames": len(sims),
+            "law_failed_frames": sum(a + b > 0 or c
+                                     for a, b, c in zip(sims, picks, cut))}
+
+
+def numbers(cell: spec.Cell, pool: inputs.Pool, kept: list, seed: int,
+            truncated=None):
     """(numbers, per-frame largest gaps {name: list}) of the kept
-    outputs against the reference."""
+    outputs against the reference; under the online source, also
+    :func:`law`'s and the program's ``truncated`` count."""
     t = cell.traffic
     ref = Reference(cell.config["settings"], t["fallrate_mm_hr"],
                     cell.config["render"]["cone_downsample"],
@@ -101,12 +162,17 @@ def numbers(cell: spec.Cell, pool: inputs.Pool, kept: list, seed: int):
     got["frames"] = len(per_frame["mask_max"])
     got["ladder"] = [[b.ph, b.pw, b.radius, b.modes_y, b.modes_x, b.ranks]
                      for b in ref.ladder]
+    if inputs.drop_source(t) == "online":
+        got.update(law(cell, pool, seed))
+        got["truncated"] = math.inf if truncated is None else truncated
     return got, per_frame
 
 
-def judge(cell: spec.Cell, pool: inputs.Pool, kept: list,
-          seed: int) -> Verdict:
-    got, per_frame = numbers(cell, pool, kept, seed)
+def judge(cell: spec.Cell, pool: inputs.Pool, kept: list, seed: int,
+          truncated=None) -> Verdict:
+    """The verdict on the kept outputs; ``truncated``: the online
+    source's count of drops lost to the simulation capacity."""
+    got, per_frame = numbers(cell, pool, kept, seed, truncated)
     held = cell.limits["numbers"]
     checks = {}
     correct = got["frames"] > 0
@@ -121,5 +187,7 @@ def judge(cell: spec.Cell, pool: inputs.Pool, kept: list,
             bad |= ~(np.asarray(gaps) <= held[name]["limit"])
     failed = int(bad.sum()) + (got["overflow_frames"] if "overflow" in held
                                else 0)
+    if {"sim_mismatch", "picks_mismatch", "truncated"} & set(held):
+        failed += got["law_failed_frames"]
     return Verdict(correct=correct, failed=failed, checks=checks,
                    numbers=got)

@@ -14,14 +14,19 @@ the memory it holds allocated. A run that compiles says so in its
 
 Step i renders pool batch i mod P through ``render_frames`` with the
 batch's texture picks as data, as the job does, and ends in a
-synchronize. The window closes after the first step that ends
-``seconds`` after it opened. The output of the latest step of each pool
-batch is kept; after the window those outputs are judged
-(:mod:`rainbench.check`). With ``trace``, the window opens with two
-``torch.profiler`` windows of ``trace_steps`` steps each: the first
-records host operations too, and only names the idle gaps (recording
-them slows a host-bound step); the second records the device alone,
-timed by the host clock, and gives every per-layer metric.
+synchronize. Under a traffic mix whose ``drops`` is ``"online"`` the
+step first makes the batch's drops and picks as the online job does
+(:class:`OnlineDrops`, inside the span ``online.drops``), and set-up
+runs that source over the pool once, for the job's render capacity to
+settle and the ladder to be fitted, before the warm steps. The window
+closes after the first step that ends ``seconds`` after it opened. The
+output of the latest step of each pool batch is kept; after the window
+those outputs are judged (:mod:`rainbench.check`). With ``trace``, the
+window opens with two ``torch.profiler`` windows of ``trace_steps``
+steps each: the first records host operations too, and only names the
+idle gaps (recording them slows a host-bound step); the second records
+the device alone, timed by the host clock, and gives every per-layer
+metric.
 """
 
 from __future__ import annotations
@@ -60,12 +65,104 @@ class StepInputs:
     tex_hw: tuple
 
 
+class OnlineDrops:
+    """The online job's drop source, as ``render/online.OnlineRenderJob``
+    and ``render/pipeline.RenderJob`` run it for a batch, through the
+    port's public functions in the job's order: each frame simulated on
+    its own generator (``physics/simulator.frame_generator`` of (seed,
+    frame), ``simulate_frames_keyed``), the drops lost to the simulation
+    capacity counted by replaying the count draw (``truncated_counts``),
+    the batch compacted to the job's render capacity (its largest valid
+    count x1.3 + 64, 128-aligned, refitted upward; ``compact_drop_batch``
+    after a read of that count, which waits for the device), and each
+    frame's texture picks drawn on a generator seeded
+    ``seed * 100003 + frame`` (``ops/rasterize.select_textures``).
+
+    The job counts a frame's truncation once, and renders every frame
+    once; the window cycles the pool's frames, so the count runs for
+    every frame of every batch, as each new batch of the job's has it.
+    Fall rate, exposure and focal scale come from the program's
+    ``schedule_from_settings``, the camera speeds from the pool."""
+
+    def __init__(self, cell: spec.Cell, pool: inputs.Pool, seed: int,
+                 device):
+        from raintpu_torch.physics.simulator import (SimConfig,
+                                                     schedule_from_settings)
+        from raintpu_torch.render.camera import settings_from_dict
+
+        t = cell.traffic
+        settings = settings_from_dict(cell.config["settings"])
+        self.sim = SimConfig.from_settings(
+            settings, capacity=int(t["sim_capacity"]))
+        self.traffic = t
+        self.seed = int(seed)
+        self.device = torch.device(device)
+        fall, _, expo, focal = schedule_from_settings(
+            settings, float(t["fallrate_mm_hr"]),
+            n_frames=pool.speeds_mps.numel())
+        self.schedule = (fall, pool.speeds_mps.flatten().cpu().numpy(),
+                         expo, focal)
+        self.render_cap = None
+        self.truncated = torch.zeros((), dtype=torch.int64,
+                                     device=self.device)
+
+    def _compact(self, batch):
+        """OnlineRenderJob._compact_for_render's rule."""
+        from raintpu_torch.particles.schema import compact_drop_batch
+
+        sim_cap = batch.valid.shape[-1]
+        vmax = int(batch.count().max())
+        if self.render_cap is None or vmax > self.render_cap:
+            self.render_cap = min(-(-(int(vmax * 1.3) + 64) // 128) * 128,
+                                  sim_cap)
+        if self.render_cap >= sim_cap:
+            return batch
+        return compact_drop_batch(batch, self.render_cap)
+
+    def __call__(self, j: int, edges: torch.Tensor):
+        """(DropBatch (B, N, ...), picks (B, N)) of pool batch ``j``."""
+        from raintpu_torch.ops.rasterize import select_textures
+        from raintpu_torch.physics.simulator import (frame_generator,
+                                                     simulate_frames_keyed,
+                                                     truncated_counts)
+        from raintpu_torch.utils import profiling
+
+        frames = inputs.online_frames(self.traffic, j)
+        dev = self.device
+        # The drops belong to the render step render_frames begins next.
+        span = profiling.span("online.drops")
+        span.step += 1
+        with span:
+            cols = [torch.as_tensor(a[frames], device=dev)
+                    for a in self.schedule]
+            batch = simulate_frames_keyed(
+                [frame_generator(self.seed, f, dev) for f in frames],
+                self.sim, *cols)
+            self.truncated += truncated_counts(
+                [frame_generator(self.seed, f, dev) for f in frames],
+                self.sim, cols[0]).sum()
+            drops = self._compact(batch)
+            picks = torch.stack([
+                select_textures(drops.map(lambda t: t[b]), edges,
+                                torch.Generator(device=dev).manual_seed(
+                                    self.seed * inputs.PICK_STRIDE + f))
+                for b, f in enumerate(frames)])
+        return drops, picks
+
+
+def _fields(drops) -> dict:
+    return {f.name: getattr(drops, f.name)
+            for f in dataclasses.fields(drops)}
+
+
 class Program:
     """The system under test, set up from a cell and its pool; with
-    ``control`` (one of CONTROLS), in that lower precision."""
+    ``control`` (one of CONTROLS), in that lower precision. Under the
+    online source the program makes each step's drops and picks from
+    the run's ``seed`` (:class:`OnlineDrops`)."""
 
     def __init__(self, cell: spec.Cell, pool: inputs.Pool, device,
-                 control: Optional[str] = None):
+                 control: Optional[str] = None, seed: int = 0):
         if control not in (None,) + CONTROLS:
             raise ValueError(f"control {control!r} is not one of {CONTROLS}")
         from raintpu_torch.data.textures import StreakDatabase, texture_bank
@@ -81,11 +178,20 @@ class Program:
                                                 bin_edges=pool.bin_edges),
                                  device=device)
         self.edges = torch.as_tensor(pool.bin_edges, device=device)
-        self.drops = [DropBatch(**pool.batch_drops(j))
-                      for j in range(pool.batches)]
+        self.source = None
+        if inputs.drop_source(cell.traffic) == "online":
+            self.source = OnlineDrops(cell, pool, seed, device)
+            # The latest drops and picks of each batch. The render
+            # capacity settles over this pass; the warm steps render at
+            # it.
+            self.used = [self.source(j, self.edges)
+                         for j in range(pool.batches)]
+        else:
+            self.drops = [DropBatch(**pool.batch_drops(j))
+                          for j in range(pool.batches)]
         h, w = pool.bg.shape[-3:-1]
         everything = DropBatch(**{k: v.reshape((-1,) + v.shape[2:])
-                                  for k, v in pool.drops.items()})
+                                  for k, v in self.judged().drops.items()})
         raster = fit_raster_config(everything, tuple(self.bank.raw.shape[1:]),
                                    (w, h), settings)
         render = cell.config["render"]
@@ -101,9 +207,43 @@ class Program:
 
     def step(self, j: int):
         p = self.pool
-        return self.frame.render_frames(p.bg[j], p.depth[j], self.drops[j],
+        if self.source is None:
+            return self.frame.render_frames(
+                p.bg[j], p.depth[j], self.drops[j], self.bank, self.edges,
+                self.cfg, tex_idx=p.tex_idx[j])
+        drops, picks = self.used[j] = self.source(j, self.edges)
+        return self.frame.render_frames(p.bg[j], p.depth[j], drops,
                                         self.bank, self.edges, self.cfg,
-                                        tex_idx=p.tex_idx[j])
+                                        tex_idx=picks)
+
+    def drops_of(self, j: int) -> dict:
+        """The drops the latest step of batch j rendered."""
+        if self.source is None:
+            return self.pool.batch_drops(j)
+        return _fields(self.used[j][0])
+
+    def judged(self) -> inputs.Pool:
+        """The pool the judge reads: under the online source, with the
+        drops and picks of each batch's latest step (each padded with
+        invalid slots to the largest drop axis among them)."""
+        if self.source is None:
+            return self.pool
+        n = max(t.shape[1] for _, t in self.used)
+
+        def stack(ts):
+            return torch.stack([torch.cat([t, t.new_zeros(
+                (t.shape[0], n - t.shape[1]) + t.shape[2:])], 1)
+                for t in ts])
+        return dataclasses.replace(
+            self.pool,
+            drops={k: stack([_fields(d)[k] for d, _ in self.used])
+                   for k in _fields(self.used[0][0])},
+            tex_idx=stack([t for _, t in self.used]))
+
+    def truncated(self) -> Optional[int]:
+        """Drops the online source found lost to the simulation
+        capacity over every step so far (None: the pool source)."""
+        return None if self.source is None else int(self.source.truncated)
 
     def ladder(self) -> list:
         return [[b.ph, b.pw, b.radius, b.capacity, b.modes_y, b.modes_x,
@@ -133,7 +273,7 @@ def setup(cell: spec.Cell, seed: int, device,
     batch j's output)."""
     device = torch.device(device)
     pool = inputs.make_pool(cell.config, cell.traffic, seed, device)
-    prog = Program(cell, pool, device, control)
+    prog = Program(cell, pool, device, control, seed)
     kept = [prog.step(j) for j in range(pool.batches)]
     # Once more, as every window step runs: all outputs kept and one
     # more in the making, so the allocator has grown before the window.
@@ -166,9 +306,9 @@ class Window:
     seconds: float          # the window, open to close
     host_prof: object       # the profile with host operations, or None
     device_prof: object     # the profile of the device alone, or None
-    device_steps: range     # the steps the device profile covers
     device_s: float         # the device profile's steps by the host clock
     issued: dict            # kernel -> launches issued in those steps
+    device_drops: list      # the drops each of those steps rendered
 
 
 def launch_counts() -> dict:
@@ -193,6 +333,7 @@ def window(prog: Program, kept: list, seconds: float, device,
     host_prof = device_prof = None
     device_s = 0.0
     issued = {}
+    device_drops = []
     start = time.perf_counter()
 
     def one(i):
@@ -218,6 +359,7 @@ def window(prog: Program, kept: list, seconds: float, device,
             t = time.perf_counter()
             for _ in range(traced_steps):
                 one(i)
+                device_drops.append(prog.drops_of(i % n_p))
                 i += 1
             device_s = time.perf_counter() - t
         issued = {k: n - before[k] for k, n in launch_counts().items()}
@@ -228,16 +370,17 @@ def window(prog: Program, kept: list, seconds: float, device,
             break
     return Window(step_s=step_s, seconds=now - start, host_prof=host_prof,
                   device_prof=device_prof,
-                  device_steps=range(traced_steps, 2 * traced_steps),
-                  device_s=device_s, issued=issued)
+                  device_s=device_s, issued=issued,
+                  device_drops=device_drops)
 
 
-def traced_inputs(cell: spec.Cell, pool: inputs.Pool, steps: range):
+def traced_inputs(cell: spec.Cell, pool: inputs.Pool, drops: list):
+    """What the kernel counts read of the traced steps that rendered
+    ``drops`` (one dict of drop fields a step)."""
     h, w = pool.bg.shape[-3:-1]
-    return [StepInputs(drops=pool.batch_drops(i % pool.batches),
-                       settings=cell.config["settings"], image_hw=(h, w),
-                       tex_hw=tuple(pool.textures.shape[1:]))
-            for i in steps]
+    return [StepInputs(drops=d, settings=cell.config["settings"],
+                       image_hw=(h, w), tex_hw=tuple(pool.textures.shape[1:]))
+            for d in drops]
 
 
 def _mean_ms(step_s) -> Optional[float]:
@@ -280,7 +423,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
             frames=frames)
     if trace:
         r.view = trace_view.view(w.device_prof, steps, w.device_s)
-        r.traced = traced_inputs(cell, pool, w.device_steps)
+        r.traced = traced_inputs(cell, pool, w.device_drops)
         r.profiled_steps = 2 * steps
         r.issued = w.issued
         host_view = trace_view.view(w.host_prof, steps)
@@ -305,8 +448,9 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
                 100.0 * (1.0 - host_view.busy_s / host_view.window_s)
                 if host_view.device_ops and host_view.window_s > 0
                 else None)}
+    judged, truncated = prog.judged(), prog.truncated()
     del w, prog
-    verdict = check.judge(cell, pool, kept, seed)
+    verdict = check.judge(cell, judged, kept, seed, truncated)
     dev = {"platform": "gpu" if cuda else "cpu", "kind": r.device_name,
            "count": cell.chips, "memory_peak_bytes": int(peak)}
     if trace:

@@ -25,13 +25,24 @@ seed, in a few large calls:
 - texture picks: every drop's ratio bin (count of bin edges <= its
   ratio) times 10 plus a uniform draw of 0..9, made here and handed to
   the program and the reference alike.
+
+A traffic mix's ``drops`` key names the drop source: ``"pool"`` (the
+default) makes the drops and picks above in set-up; under ``"online"``
+the program simulates them inside every render step (the online job,
+``rainbench/harness.OnlineDrops``), and the pool holds the frames, the
+bank and the speeds alone. Frame b of pool batch j is then the job's
+frame index ``j * batch + b`` (:func:`online_frames`). On a generator
+seeded ``sub_seed(seed, frame)``, as the program's ``frame_generator``
+seeds it, the law copied here draws what the program's simulator
+draws, and :func:`job_picks` what the job's picks draw, so the judge
+holds the program's drops and picks to them exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,6 +64,10 @@ TEXTURES_PER_BIN = 10
 # Sub-seeds of one run (numpy SeedSequence([seed, STREAM])).
 STREAM_SIM, STREAM_FRAMES, STREAM_PICKS, STREAM_TEXTURES, STREAM_ORDER, \
     STREAM_CHECK = range(6)
+# The drop sources a traffic mix's "drops" key names.
+DROP_SOURCES = ("pool", "online")
+# The job seeds frame f's texture picks with seed * PICK_STRIDE + f.
+PICK_STRIDE = 100003
 
 
 def sub_seed(seed: int, stream: int, bits: int = 63) -> int:
@@ -248,6 +263,16 @@ def texture_picks(gen: torch.Generator, ratio: torch.Tensor,
                                      device=ratio.device)
 
 
+def job_picks(seed: int, frame: int, ratio: torch.Tensor,
+              edges: torch.Tensor) -> torch.Tensor:
+    """Frame ``frame``'s texture picks as the job draws them: on a
+    generator seeded ``seed * PICK_STRIDE + frame``, over the frame's
+    (N,) drop slots."""
+    gen = torch.Generator(device=ratio.device).manual_seed(
+        int(seed) * PICK_STRIDE + int(frame))
+    return texture_picks(gen, ratio, edges)
+
+
 # -- the pool ----------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -257,8 +282,10 @@ class Pool:
 
     bg: torch.Tensor                 # (P, B, H, W, 3) float32
     depth: torch.Tensor              # (P, B, H, W) float32
-    drops: Dict[str, torch.Tensor]   # (P, B, N, ...)
-    tex_idx: torch.Tensor            # (P, B, N) int64
+    # (P, B, N, ...) and (P, B, N) int64; None where the program makes
+    # them in its steps (the online source).
+    drops: Optional[Dict[str, torch.Tensor]]
+    tex_idx: Optional[torch.Tensor]
     textures: np.ndarray             # (K, TH, TW) float32
     bin_edges: np.ndarray            # (4,) float32
     speeds_mps: torch.Tensor         # (P, B)
@@ -287,9 +314,26 @@ def speed_schedule(config: dict) -> List[float]:
     return [float(v) for v in np.arange(*m)]
 
 
+def drop_source(traffic: dict) -> str:
+    """The traffic mix's drop source: its ``drops`` key, "pool" where it
+    has none."""
+    source = traffic.get("drops", "pool")
+    if source not in DROP_SOURCES:
+        raise ValueError(f"drops {source!r} is not one of {DROP_SOURCES}")
+    return source
+
+
+def online_frames(traffic: dict, j: int) -> List[int]:
+    """The job's frame indices of pool batch ``j`` under the online
+    source: batch j holds frames j * batch to (j + 1) * batch - 1."""
+    n_b = int(traffic["batch"])
+    return list(range(j * n_b, (j + 1) * n_b))
+
+
 def make_pool(config: dict, traffic: dict, seed: int, device) -> Pool:
     """The pool of a cell's run on ``device`` (see the module doc)."""
     device = torch.device(device)
+    online = drop_source(traffic) == "online"
     s = config["settings"]
     cam = Camera.from_settings(s)
     w, h = cam.wh
@@ -304,17 +348,18 @@ def make_pool(config: dict, traffic: dict, seed: int, device) -> Pool:
     speeds_mps = torch.as_tensor(speeds[order] / 3.6, dtype=torch.float32,
                                  device=device)
 
-    sim_cap = simulation_capacity(cam, rate)
-    fields, count = simulate(
-        generator(seed, STREAM_SIM, device), cam, sim_cap,
-        torch.full((n_fr,), rate, dtype=torch.float32, device=device),
-        speeds_mps)
-    truncated = int(torch.clamp_min(count - sim_cap, 0).sum())
-    if truncated:
-        raise AssertionError(f"the simulation capacity {sim_cap} truncated "
-                             f"{truncated} drops")
-    most = int(fields["valid"].sum(-1).max())
-    drops = compact(fields, max(128, -(-most // 128) * 128))
+    if not online:
+        sim_cap = simulation_capacity(cam, rate)
+        fields, count = simulate(
+            generator(seed, STREAM_SIM, device), cam, sim_cap,
+            torch.full((n_fr,), rate, dtype=torch.float32, device=device),
+            speeds_mps)
+        truncated = int(torch.clamp_min(count - sim_cap, 0).sum())
+        if truncated:
+            raise AssertionError(f"the simulation capacity {sim_cap} "
+                                 f"truncated {truncated} drops")
+        most = int(fields["valid"].sum(-1).max())
+        drops = compact(fields, max(128, -(-most // 128) * 128))
 
     gf = generator(seed, STREAM_FRAMES, device)
     bg = torch.rand((n_p, n_b, h, w, 3), generator=gf, device=device)
@@ -324,13 +369,17 @@ def make_pool(config: dict, traffic: dict, seed: int, device) -> Pool:
 
     textures, edges = procedural_textures(sub_seed(seed, STREAM_TEXTURES,
                                                    bits=32))
-    tex_idx = texture_picks(generator(seed, STREAM_PICKS, device),
-                            drops["ratio"],
-                            torch.as_tensor(edges, device=device))
 
     def split(t):
         return t.reshape((n_p, n_b) + t.shape[1:])
 
+    if online:
+        return Pool(bg=bg, depth=depth, drops=None, tex_idx=None,
+                    textures=textures, bin_edges=edges,
+                    speeds_mps=split(speeds_mps))
+    tex_idx = texture_picks(generator(seed, STREAM_PICKS, device),
+                            drops["ratio"],
+                            torch.as_tensor(edges, device=device))
     return Pool(bg=bg, depth=depth, drops={k: split(v) for k, v in
                                           drops.items()},
                 tex_idx=split(tex_idx), textures=textures, bin_edges=edges,

@@ -26,7 +26,8 @@ def _counts(monkeypatch, ladder):
     cell = tiny("kitti-200mm")
     pool, prog, _ = harness.setup(cell, SEED, "cpu")
     got = [b.ph for b in prog.cfg.raster.buckets]
-    steps = harness.traced_inputs(cell, pool, range(3))
+    steps = harness.traced_inputs(
+        cell, pool, [prog.drops_of(i % pool.batches) for i in range(3)])
     return got, [spec.count(k).count(s) for s in steps
                  for k in ("fused_raster", "separable_blur")]
 

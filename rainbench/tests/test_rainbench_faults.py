@@ -67,12 +67,67 @@ def _short(real):
 
 @pytest.mark.parametrize("fault", [_stale, _half, _altered, _short],
                          ids=["stale", "half", "altered", "short"])
-@pytest.mark.parametrize("name", ["kitti-10mm", "nuscenes-100mm"])
+@pytest.mark.parametrize("name", ["kitti-10mm", "nuscenes-100mm",
+                                  "kitti-online-25mm"])
 def test_fault_is_not_correct(monkeypatch, fault, name):
     cell = tiny(name, batch=4 if fault is _half else 2)
     monkeypatch.setattr(frame, "render_frames", fault(frame.render_frames))
+    _not_correct(cell)
+
+
+def _not_correct(cell):
     result, checks = harness.run(cell, SEED, 0.3, False, "cpu",
                                  time.perf_counter())
     assert result["correct"] is False
     assert result["failed"] > 0
     assert any(c["value"] > c["limit"] for c in checks.values())
+
+
+def _moved(real):
+    """One drop of each batch's first frame moved a pixel as it is
+    simulated."""
+    def simulate(*a, **kw):
+        out = real(*a, **kw)
+        first = int(out.valid[0].nonzero()[0])
+        out.ip1[0, first, 0] += 1.0
+        return out
+    return simulate
+
+
+def _repicked(real):
+    def select(drops, edges, gen=None):
+        return (real(drops, edges, gen) + 1) % 50
+    return select
+
+
+def _cut(real):
+    """Compaction one slot short of the batch's largest valid count:
+    a drop lost."""
+    def compact(drops, capacity):
+        return real(drops, int(drops.count().max()) - 1)
+    return compact
+
+
+@pytest.mark.parametrize("fault", ["moved", "repicked", "cut", "truncated"])
+def test_online_source_fault_is_not_correct(monkeypatch, fault):
+    """The online source's faults the reference cannot see, since it
+    renders the drops and picks the step made: a drop altered where it
+    is simulated, a pick altered where it is drawn, drops lost to the
+    compaction, and drops lost to the simulation capacity."""
+    from raintpu_torch.ops import rasterize
+    from raintpu_torch.particles import schema
+    from raintpu_torch.physics import simulator
+
+    cell = tiny("kitti-online-25mm")
+    if fault == "moved":
+        monkeypatch.setattr(simulator, "simulate_frames_keyed",
+                            _moved(simulator.simulate_frames_keyed))
+    elif fault == "repicked":
+        monkeypatch.setattr(rasterize, "select_textures",
+                            _repicked(rasterize.select_textures))
+    elif fault == "cut":
+        monkeypatch.setattr(schema, "compact_drop_batch",
+                            _cut(schema.compact_drop_batch))
+    else:
+        cell.traffic["sim_capacity"] = 64
+    _not_correct(cell)

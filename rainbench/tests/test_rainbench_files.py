@@ -8,7 +8,7 @@ import re
 
 import pytest
 
-from rainbench import harness, spec
+from rainbench import harness, inputs, spec
 from rainbench.tests.conftest import CELLS
 
 BENCH = spec.benchmark()
@@ -47,6 +47,10 @@ def test_cell_files(name):
     assert {"mask_max", "image_mean", "overflow"} <= set(held)
     assert ("envmap_max" in held) == bool(cell.traffic["save_envmap"])
     assert held["overflow"]["limit"] == 0
+    if inputs.drop_source(cell.traffic) == "online":
+        assert int(cell.traffic["sim_capacity"]) > 0
+        for name_ in ("truncated", "sim_mismatch", "picks_mismatch"):
+            assert held[name_]["limit"] == 0
     assert {m["name"] for m in cell.end_to_end} == {
         "images_per_s", "step_ms_p95", "setup_s"}
     assert len(cell.per_layer) >= 1

@@ -12,7 +12,7 @@ PROBE = """
 import sys, time
 from rainbench import harness, run
 from rainbench.tests.conftest import tiny
-for name in ("kitti-10mm-envmap", "nuscenes-100mm"):
+for name in ("kitti-10mm-envmap", "nuscenes-100mm", "kitti-online-25mm"):
     harness.run(tiny(name), 77, 0.2, False, "cpu", time.perf_counter())
 print(",".join(run.forbidden_modules()) or "none")
 print("raintpu_torch" in sys.modules)

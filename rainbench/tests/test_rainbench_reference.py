@@ -16,12 +16,13 @@ SEED = 2 ** 40 + 99
 
 
 def _verdict(cell, control):
-    pool, prog, kept = harness.setup(cell, SEED, "cpu", control)
-    return check.judge(cell, pool, kept, SEED)
+    _, prog, kept = harness.setup(cell, SEED, "cpu", control)
+    return check.judge(cell, prog.judged(), kept, SEED, prog.truncated())
 
 
 @pytest.mark.parametrize("name", ["kitti-10mm", "kitti-200mm",
-                                  "nuscenes-100mm", "kitti-10mm-envmap"])
+                                  "nuscenes-100mm", "kitti-10mm-envmap",
+                                  "nuscenes-10mm", "kitti-online-25mm"])
 def test_reference_matches_plain_path(name):
     got = _verdict(tiny(name, check_frames=2), None).numbers
     assert got["frames"] == 2 * 3
@@ -33,7 +34,8 @@ def test_reference_matches_plain_path(name):
 
 
 @pytest.mark.parametrize("name", ["kitti-10mm", "kitti-200mm",
-                                  "nuscenes-100mm"])
+                                  "nuscenes-100mm", "nuscenes-10mm",
+                                  "kitti-online-25mm"])
 def test_control_fails_the_limits(name):
     verdict = _verdict(tiny(name), "bf16")
     assert verdict.correct is False
