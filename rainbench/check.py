@@ -85,14 +85,16 @@ def law(cell: spec.Cell, pool: inputs.Pool, seed: int) -> dict:
     """The online source's drops and picks of every frame of ``pool``
     (the kept steps') against the copy of the simulator's law and of the
     job's picks on the same frame's generators: the copy simulates each
-    frame on its own at the simulation capacity, as the program does,
-    so it draws the same numbers, and the two agree exactly."""
+    frame on its own at the simulation capacity, the configuration's
+    render scale and the job's exposure, as the program does, so it
+    draws the same numbers, and the two agree exactly."""
     t = cell.traffic
     dev = pool.bg.device
     cam = inputs.Camera.from_settings(cell.config["settings"])
     cap = int(t["sim_capacity"])
     rate = torch.full((1,), float(t["fallrate_mm_hr"]), dtype=torch.float32,
                       device=dev)
+    expo = inputs.job_exposure_s(cell.config["settings"], 1, dev)
     edges = torch.as_tensor(pool.bin_edges, device=dev)
     n = pool.drops["valid"].shape[-1]
     sims, picks, cut = [], [], []
@@ -100,7 +102,7 @@ def law(cell: spec.Cell, pool: inputs.Pool, seed: int) -> dict:
         for b, f in enumerate(inputs.online_frames(t, j)):
             fields, count = inputs.simulate(
                 inputs.generator(seed, f, dev), cam, cap, rate,
-                pool.speeds_mps[j, b:b + 1])
+                pool.speeds_mps[j, b:b + 1], expo)
             cut.append(int(count.max()) > cap)
             mine = inputs.compact(fields, cap)
             theirs = {k: v[j, b][None] for k, v in pool.drops.items()}

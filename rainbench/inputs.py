@@ -8,12 +8,17 @@ made on the device with ``torch.Generator`` s seeded from the run's
 seed, in a few large calls:
 
 - frames: RGB uniform in [0, 1), depth uniform over ``depth_m`` (the
-  law of the port's ``tools/bench_suite.build_scene``);
+  law of the port's ``tools/bench_suite.build_scene``), at the rendered
+  size: the settings' ``cam_WH`` // ``render_scale``, as the dataset
+  loader resizes a frame and its depth map;
 - drops: one population per frame, sampled by a copy of the port's
   per-frame simulator law (``physics/simulator.simulate_frames``: a
   Poisson count of visible drops, depth strata in proportion to their
   rates, Marshall-Palmer diameters conditioned on visibility, Atlas
-  terminal velocities, motion over the exposure), the simulation
+  terminal velocities, motion over the exposure; projected at the
+  camera's full resolution, with the sampling floor there, then
+  positions and widths divided by ``render_scale`` before rounding and
+  culled against the rendered frame), the simulation
   capacity sized from the expected count + 5 sigma and no truncation
   allowed, then packed to one render capacity (the largest frame's
   valid count, 128-aligned) for the whole pool;
@@ -33,9 +38,10 @@ the program simulates them inside every render step (the online job,
 bank and the speeds alone. Frame b of pool batch j is then the job's
 frame index ``j * batch + b`` (:func:`online_frames`). On a generator
 seeded ``sub_seed(seed, frame)``, as the program's ``frame_generator``
-seeds it, the law copied here draws what the program's simulator
-draws, and :func:`job_picks` what the job's picks draw, so the judge
-holds the program's drops and picks to them exactly.
+seeds it, and at the job's exposure (:func:`job_exposure_s`), the law
+copied here draws what the program's simulator draws, and
+:func:`job_picks` what the job's picks draw, so the judge holds the
+program's drops and picks to them exactly.
 """
 
 from __future__ import annotations
@@ -96,9 +102,10 @@ def _concentration_above(d_mm, rate):
 class Camera:
     """The simulation's view of the configuration's camera."""
 
-    wh: tuple            # image (W, H)
-    focal_px: tuple      # (fx, fy)
+    wh: tuple            # camera image (W, H), the full resolution
+    focal_px: tuple      # (fx, fy) at the full resolution
     exposure_s: float
+    render_scale: int = 1
 
     @staticmethod
     def from_settings(s: dict) -> "Camera":
@@ -107,7 +114,14 @@ class Camera:
         w, h = (int(v) for v in s["cam_WH"])
         cw, ch = (int(v) for v in s["cam_CCD_WH"])
         return Camera(wh=(w, h), focal_px=(f * w / cw, f * h / ch),
-                      exposure_s=float(s["cam_exposure"]) * 1e-3)
+                      exposure_s=float(s["cam_exposure"]) * 1e-3,
+                      render_scale=int(s.get("render_scale", 1)))
+
+    @property
+    def render_wh(self) -> tuple:
+        """The rendered frame (W, H): the camera's // render_scale, as
+        the dataset loader resizes a frame."""
+        return tuple(v // self.render_scale for v in self.wh)
 
 
 def _strata(cam: Camera, rate: torch.Tensor):
@@ -135,9 +149,22 @@ def simulation_capacity(cam: Camera, fallrate: float) -> int:
     return int(-(-(e + 5 * math.sqrt(e) + 64) // 256) * 256)
 
 
+def job_exposure_s(settings: dict, n_frames: int, device) -> torch.Tensor:
+    """The online job's exposure (s) of ``n_frames`` frames, (F,)
+    float32: its schedule holds the settings' ``cam_exposure`` in ms as
+    float32 and multiplies by 1e-3 in float32, which can differ from
+    the exposure in seconds rounded to float32 by a unit in the last
+    place (5 ms: 0.0050000004)."""
+    e = np.float32(settings["cam_exposure"]) * np.float32(1e-3)
+    return torch.full((n_frames,), float(e), dtype=torch.float32,
+                      device=device)
+
+
 def simulate(gen: torch.Generator, cam: Camera, capacity: int,
-             fallrate: torch.Tensor, speed_mps: torch.Tensor):
-    """Drop populations of F frames (fallrate, speed_mps: (F,)), in the
+             fallrate: torch.Tensor, speed_mps: torch.Tensor,
+             exposure_s: Optional[torch.Tensor] = None):
+    """Drop populations of F frames (fallrate, speed_mps and, where
+    given, exposure_s: (F,); else the camera's exposure), in the
     renderer's parsed convention, and each frame's Poisson count before
     the capacity clamp. Returns (fields dict of (F, capacity, ...)
     tensors, count (F,))."""
@@ -169,7 +196,8 @@ def simulate(gen: torch.Generator, cam: Camera, capacity: int,
     p1 = torch.stack([x, y, -z], -1)
     vel = torch.stack([torch.zeros_like(v_term), -v_term,
                        speed_mps[:, None].expand_as(v_term)], -1)
-    p2 = p1 + vel * cam.exposure_s
+    p2 = p1 + vel * (cam.exposure_s if exposure_s is None
+                     else exposure_s[:, None, None])
 
     def project(p):
         depth = torch.clamp_min(-p[..., 2], 1e-3)
@@ -178,10 +206,14 @@ def simulate(gen: torch.Generator, cam: Camera, capacity: int,
 
     u1, v1, dep1 = project(p1)
     u2, v2, dep2 = project(p2)
-    iw1 = fx * (d_mm * 1e-3) / dep1
-    iw2 = fx * (d_mm * 1e-3) / dep2
-    ip1 = torch.stack([u1, v1], -1)
-    ip2 = torch.stack([u2, v2], -1)
+    # Projected at the full resolution, then scaled to the rendered
+    # frame before rounding, and culled against it.
+    rs = float(cam.render_scale)
+    ws, hs = w / rs, h / rs
+    iw1 = fx * (d_mm * 1e-3) / dep1 / rs
+    iw2 = fx * (d_mm * 1e-3) / dep2 / rs
+    ip1 = torch.stack([u1 / rs, v1 / rs], -1)
+    ip2 = torch.stack([u2 / rs, v2 / rs], -1)
     wp1 = torch.stack([p1[..., 0], p1[..., 1], -p1[..., 2]], -1)
     wp2 = torch.stack([p2[..., 0], p2[..., 1], -p2[..., 2]], -1)
 
@@ -192,11 +224,11 @@ def simulate(gen: torch.Generator, cam: Camera, capacity: int,
     ip1r, ip2r = torch.round(ip1), torch.round(ip2)
     dr = ip1r - ip2r
     length = torch.ceil(torch.sqrt((dr * dr).sum(-1))).to(torch.int32)
-    m = max(h, w)
+    m = max(hs, ws)
 
     def inside(p):
-        return ((p[..., 0] >= 0) & (p[..., 0] < w)
-                & (p[..., 1] >= 0) & (p[..., 1] < h))
+        return ((p[..., 0] >= 0) & (p[..., 0] < ws)
+                & (p[..., 1] >= 0) & (p[..., 1] < hs))
 
     valid = (valid & (max_width >= 1) & (length >= 1) & (max_width < m)
              & (length < m) & (inside(ip1r) | inside(ip2r)))
@@ -336,7 +368,7 @@ def make_pool(config: dict, traffic: dict, seed: int, device) -> Pool:
     online = drop_source(traffic) == "online"
     s = config["settings"]
     cam = Camera.from_settings(s)
-    w, h = cam.wh
+    w, h = cam.render_wh
     n_p, n_b = int(traffic["pool_batches"]), int(traffic["batch"])
     n_fr = n_p * n_b
     rate = float(traffic["fallrate_mm_hr"])

@@ -12,7 +12,9 @@ from rainbench import spec
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
 # A CPU-sized cell: the configuration's camera and optics on a 320x96
-# frame, two frames a batch, three batches.
+# rendered frame, two frames a batch, three batches. A configuration
+# that renders at a scale keeps it: its camera is render_scale times the
+# frame.
 TINY_HW = (96, 320)
 
 
@@ -37,11 +39,15 @@ def card():
 
 
 def tiny(name: str, batch: int = 2, pool_batches: int = 3,
-         check_frames: int = 2) -> spec.Cell:
-    """Cell ``name`` at a CPU size: its files, a 320x96 frame."""
+         check_frames: int = 2, config: str = None) -> spec.Cell:
+    """Cell ``name`` at a CPU size: its files (with ``config``, that
+    configuration's in place of its own), a 320x96 rendered frame."""
     cell = copy.deepcopy(spec.cell(name))
+    if config is not None:
+        cell.config = spec.config(config)
     s = cell.config["settings"]
-    s["cam_WH"] = s["cam_CCD_WH"] = [TINY_HW[1], TINY_HW[0]]
+    rs = int(s.get("render_scale", 1))
+    s["cam_WH"] = s["cam_CCD_WH"] = [TINY_HW[1] * rs, TINY_HW[0] * rs]
     cell.traffic.update(batch=batch, pool_batches=pool_batches,
                         check_frames_per_batch=check_frames, trace_steps=2)
     return cell

@@ -154,3 +154,35 @@ def test_step_percentile_and_rate():
     assert spec.reader("step_ms_p95").read(run) == pytest.approx(12.0)
     assert spec.reader("setup_s").read(run) == 3.5
     assert spec.reader("device.idle_share").read(run) is None
+
+
+def test_online_rate_reads_the_untraced_steps():
+    cell = type("C", (), {"batch": 48})()
+    run = harness.Run(cell=cell, device_name="cpu", setup_s=1.0,
+                      step_s=[0.5] * 4 + [0.2] * 10, window_s=4.0,
+                      frames=48 * 14, view=None, profiled_steps=4)
+    assert spec.reader("online.images_per_s").read(run) == pytest.approx(
+        48 / 0.2)
+    run.step_s = run.step_s[:4]
+    assert spec.reader("online.images_per_s").read(run) is None
+
+
+SPLIT = sorted(m["name"] for m in spec.benchmark()["per_layer"]
+               if m["name"].endswith(".online"))
+
+
+@pytest.mark.parametrize("name", SPLIT)
+def test_online_metric_reads_as_its_base(name):
+    prof = _Prof([_ev("aten::add", 0, 100, False),
+                  _ev("separable_blur_kernel", 200, 260, True),
+                  _ev("k3", 300, 310, True)])
+    run = harness.Run(cell=None, device_name="NVIDIA H100 80GB HBM3",
+                      setup_s=0, step_s=[9e-4] * 4 + [200e-6, 240e-6],
+                      window_s=0, frames=0, view=trace_view.view(prof, 2),
+                      profiled_steps=4, issued={"separable_blur": 1,
+                                                "fused_raster": 0})
+    run.traced = [harness.StepInputs(
+        drops={"valid": torch.ones(1, 1, dtype=torch.bool)}, settings={},
+        image_hw=(100, 100), tex_hw=(1, 1))]
+    base = name[:-len(".online")]
+    assert spec.reader(name).read(run) == spec.reader(base).read(run)

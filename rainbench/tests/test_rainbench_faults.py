@@ -68,7 +68,8 @@ def _short(real):
 @pytest.mark.parametrize("fault", [_stale, _half, _altered, _short],
                          ids=["stale", "half", "altered", "short"])
 @pytest.mark.parametrize("name", ["kitti-10mm", "nuscenes-100mm",
-                                  "kitti-online-25mm"])
+                                  "kitti-online-25mm",
+                                  "cityscapes-25mm-envmap"])
 def test_fault_is_not_correct(monkeypatch, fault, name):
     cell = tiny(name, batch=4 if fault is _half else 2)
     monkeypatch.setattr(frame, "render_frames", fault(frame.render_frames))

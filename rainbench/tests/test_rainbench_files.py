@@ -51,9 +51,21 @@ def test_cell_files(name):
         assert int(cell.traffic["sim_capacity"]) > 0
         for name_ in ("truncated", "sim_mismatch", "picks_mismatch"):
             assert held[name_]["limit"] == 0
+    # The host issues an online cell's step, and its rate moves by more
+    # than a bound can hold: there it is the per-layer
+    # online.images_per_s.
+    rate = {"images_per_s"} if inputs.drop_source(cell.traffic) == "pool" \
+        else set()
     assert {m["name"] for m in cell.end_to_end} == {
-        "images_per_s", "step_ms_p95", "setup_s"}
+        "step_ms_p95", "setup_s"} | rate
     assert len(cell.per_layer) >= 1
+
+
+@pytest.mark.parametrize("metric", BENCH["per_layer"],
+                         ids=lambda m: m["name"])
+def test_per_layer_metric_moves_what_its_cells_report(metric):
+    for w in metric["workloads"]:
+        assert metric["moves"] in {m["name"] for m in spec.cell(w).end_to_end}
 
 
 @pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])

@@ -76,8 +76,10 @@ def _digest(pool) -> str:
     return h.hexdigest()
 
 
-# The pools the benchmark made before the online source (this seed,
-# the CPU size), by their sha256.
+# The pools of the pool cells (this seed, the CPU size), by their
+# sha256: the first four as the benchmark made them before the online
+# source, nuscenes-10mm's as it was added, and Cityscapes' at its render
+# scale.
 POOL_DIGESTS = {
     "kitti-10mm": "5bc6c09dcd4b567b7adebb60c9996c65"
                   "9735efab42b5be7cf2dd54a0717b1cbd",
@@ -87,6 +89,10 @@ POOL_DIGESTS = {
                          "9735efab42b5be7cf2dd54a0717b1cbd",
     "kitti-200mm": "48cd5a917eef85e80a45fad8ab840e35"
                    "9d24318fd6068872c9112a2eb668bfae",
+    "nuscenes-10mm": "ac292eadff4cc882fd253d11e25ff9fc"
+                     "6e2375ffb73a6cea33df771da8f13bdb",
+    "cityscapes-25mm-envmap": "a82a0394dc24fb2f762430c7a6c231d7"
+                              "9cda9249379c35d3dc5e550a6f02159d",
 }
 
 

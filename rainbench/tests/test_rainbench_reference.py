@@ -22,7 +22,8 @@ def _verdict(cell, control):
 
 @pytest.mark.parametrize("name", ["kitti-10mm", "kitti-200mm",
                                   "nuscenes-100mm", "kitti-10mm-envmap",
-                                  "nuscenes-10mm", "kitti-online-25mm"])
+                                  "nuscenes-10mm", "kitti-online-25mm",
+                                  "cityscapes-25mm-envmap"])
 def test_reference_matches_plain_path(name):
     got = _verdict(tiny(name, check_frames=2), None).numbers
     assert got["frames"] == 2 * 3
@@ -35,7 +36,8 @@ def test_reference_matches_plain_path(name):
 
 @pytest.mark.parametrize("name", ["kitti-10mm", "kitti-200mm",
                                   "nuscenes-100mm", "nuscenes-10mm",
-                                  "kitti-online-25mm"])
+                                  "kitti-online-25mm",
+                                  "cityscapes-25mm-envmap"])
 def test_control_fails_the_limits(name):
     verdict = _verdict(tiny(name), "bf16")
     assert verdict.correct is False
