@@ -14,6 +14,15 @@ port's simulator is held to the JAX one by statistics only. Where the
 JAX package keys a frame by ``fold_in(PRNGKey(seed), frame_idx)``, the
 port gives each frame a generator of its own (:func:`frame_generator`),
 so a frame's drops do not depend on the batch it is simulated in.
+
+:func:`simulate_frames_keyed` and :func:`truncated_counts` run one
+frame at a time, some two hundred small device operations a frame. Where
+every generator and tensor of a call is on one CUDA device
+(:func:`graph_device`), they replay that loop as a CUDA graph
+(:data:`SIM_GRAPHS`, :data:`TRUNCATION_GRAPHS`), drawing from the
+callers' generators' states: the same kernels on the same draws, issued
+by one host call, inside the span ``sim.replay`` or
+``sim.truncation.replay``.
 """
 
 from __future__ import annotations
@@ -28,6 +37,13 @@ from raintpu_torch import resolve_device
 from raintpu_torch.particles.schema import (DropBatch, TYPE_BIG,
                                             TYPE_MEDIUM, TYPE_SMALL)
 from raintpu_torch.physics import dsd
+from raintpu_torch.utils import graphs
+
+# simulate_frames_keyed's and truncated_counts' per-frame loops, captured
+# as CUDA graphs: one a process for each of up to graphs.KEYS
+# (SimConfig, frames, device).
+SIM_GRAPHS = graphs.GraphCache("sim.replay")
+TRUNCATION_GRAPHS = graphs.GraphCache("sim.truncation.replay")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,6 +268,24 @@ def stack_batches(batches: Sequence[DropBatch]) -> DropBatch:
                         for f in dataclasses.fields(DropBatch)})
 
 
+def graph_device(generators: Sequence[Optional[torch.Generator]],
+                 tensors: Sequence[torch.Tensor]) -> Optional[torch.device]:
+    """The CUDA device that every one of ``generators`` and ``tensors``
+    is on (a device without an index is the current one), where the
+    keyed functions replay their loops as graphs; None (they run
+    eagerly) where there is none, or where two of ``generators`` are one
+    generator, whose draws follow one another."""
+    if (not generators or any(g is None for g in generators)
+            or len(set(map(id, generators))) != len(generators)):
+        return None
+    devices = {g.device for g in generators} | {t.device for t in tensors}
+    if any(d.type != "cuda" for d in devices):
+        return None
+    index = {torch.cuda.current_device() if d.index is None else d.index
+             for d in devices}
+    return torch.device("cuda", index.pop()) if len(index) == 1 else None
+
+
 def simulate_frames_keyed(generators: Sequence[torch.Generator],
                           cfg: SimConfig,
                           fallrate: torch.Tensor,
@@ -260,11 +294,24 @@ def simulate_frames_keyed(generators: Sequence[torch.Generator],
                           focal_scale: torch.Tensor) -> DropBatch:
     """Like :func:`simulate_frames`, but frame b draws from
     ``generators[b]`` alone, so its drops equal a one-frame simulation
-    on that generator whatever batch it is in."""
-    return stack_batches([
-        simulate_frames(g, cfg, fallrate[b:b + 1], cam_speed_mps[b:b + 1],
-                        exposure_s[b:b + 1], focal_scale[b:b + 1])
-        for b, g in enumerate(generators)])
+    on that generator whatever batch it is in. Replayed from
+    :data:`SIM_GRAPHS` where :func:`graph_device`; the caller owns the
+    tensors returned."""
+    def simulate(gens, *cols):
+        return stack_batches([
+            simulate_frames(g, cfg, *(c[b:b + 1] for c in cols))
+            for b, g in enumerate(gens)])
+
+    cols = (fallrate, cam_speed_mps, exposure_s, focal_scale)
+    device = graph_device(generators, cols)
+    if device is None:
+        return simulate(generators, *cols)
+    b = len(generators)
+    # simulate_frames takes every column as float32 first.
+    out = SIM_GRAPHS((cfg, b, device), simulate,
+                     [c[:b].to(torch.float32) for c in cols], device,
+                     generators=generators)
+    return out.map(torch.clone)
 
 
 def truncated_count(generator: Optional[torch.Generator], cfg: SimConfig,
@@ -279,9 +326,20 @@ def truncated_count(generator: Optional[torch.Generator], cfg: SimConfig,
 
 def truncated_counts(generators: Sequence[torch.Generator],
                      cfg: SimConfig, fallrate: torch.Tensor) -> torch.Tensor:
-    """:func:`truncated_count` per frame, frame b on ``generators[b]``."""
-    return torch.cat([truncated_count(g, cfg, fallrate[b:b + 1])
-                      for b, g in enumerate(generators)])
+    """:func:`truncated_count` per frame, frame b on ``generators[b]``.
+    Replayed from :data:`TRUNCATION_GRAPHS` where :func:`graph_device`;
+    the caller owns the tensor returned."""
+    def count(gens, fallrate):
+        return torch.cat([truncated_count(g, cfg, fallrate[b:b + 1])
+                          for b, g in enumerate(gens)])
+
+    device = graph_device(generators, (fallrate,))
+    if device is None:
+        return count(generators, fallrate)
+    b = len(generators)
+    return TRUNCATION_GRAPHS((cfg, b, device), count,
+                             [fallrate[:b].to(torch.float32)], device,
+                             generators=generators).clone()
 
 
 def schedule_from_settings(settings, fallrate: float,

@@ -942,3 +942,86 @@ def test_prep_waits_for_nothing(cuda):
     # The block's own closing synchronize aside.
     syncs.pop("cudaDeviceSynchronize", None)
     assert not syncs, syncs
+
+
+@pytest.fixture
+def sim_graphs(monkeypatch):
+    """Fresh SIM_GRAPHS and TRUNCATION_GRAPHS for the test."""
+    from raintpu_torch.physics import simulator
+    from raintpu_torch.utils import graphs
+
+    caches = {"sim.replay": graphs.GraphCache("sim.replay"),
+              "sim.truncation.replay":
+                  graphs.GraphCache("sim.truncation.replay")}
+    monkeypatch.setattr(simulator, "SIM_GRAPHS", caches["sim.replay"])
+    monkeypatch.setattr(simulator, "TRUNCATION_GRAPHS",
+                        caches["sim.truncation.replay"])
+    return caches
+
+
+def _online_batch(dev, cfg, frames, graphed):
+    """The online job's drop source for ``frames`` at 25 mm/hr over the
+    KITTI ramp: the keyed simulation and the count replay, each frame on
+    its own ``frame_generator``, and every generator's Philox offset
+    after the calls; ``graphed`` False runs the per-frame loops
+    eagerly."""
+    from raintpu_torch.physics import simulator
+
+    f = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+    cols = (torch.full_like(f, 25.0), (100.0 - f % 101) / 3.6,
+            torch.full_like(f, 2e-3), torch.ones_like(f))
+
+    def gens():
+        return [simulator.frame_generator(2524000101, i, dev) for i in frames]
+
+    with pytest.MonkeyPatch.context() as m:
+        if not graphed:
+            m.setattr(simulator, "graph_device", lambda *a: None)
+        sim_gens, count_gens = gens(), gens()
+        drops = simulator.simulate_frames_keyed(sim_gens, cfg, *cols)
+        counts = simulator.truncated_counts(count_gens, cfg, cols[0])
+    return drops, counts, [g.get_offset() for g in sim_gens + count_gens]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capacity", [2048, 512])
+def test_sim_graph_replays_equal_the_eager_loop(cuda, sim_graphs, capacity):
+    """KITTI's SimConfig at 25 mm/hr (capacity 2048, the online cell's;
+    512, under the population, so that the count replay counts), 48
+    frames a call: after a key's first call, three calls replay
+    simulate_frames_keyed and truncated_counts, each field equal to the
+    eager loop's and every generator at its offset, inside the replay
+    spans; the results kept from every call unchanged by the later
+    ones."""
+    from raintpu_torch.data.datasets import kitti
+    from raintpu_torch.physics import simulator
+    from raintpu_torch.render.camera import settings_from_dict
+    from raintpu_torch.utils import profiling
+
+    cfg = simulator.SimConfig.from_settings(
+        settings_from_dict(kitti.settings()), capacity=capacity)
+    sets = [list(range(i * 48, (i + 1) * 48)) for i in range(4)]
+    want = [_online_batch(cuda, cfg, s, graphed=False) for s in sets]
+
+    def replays():
+        return {n: sum(r[0] == n for r in profiling.RING)
+                for n in sim_graphs}
+
+    kept = []
+    for i, s in enumerate(sets):
+        before = replays()
+        kept.append(_online_batch(cuda, cfg, s, graphed=True))
+        torch.cuda.synchronize()
+        after = replays()
+        assert all(after[n] - before[n] == (i > 0) for n in sim_graphs)
+    for (drops, counts, offsets), (w_drops, w_counts, w_offsets) in zip(
+            kept, want):
+        for f in dataclasses.fields(w_drops):
+            assert torch.equal(getattr(drops, f.name),
+                               getattr(w_drops, f.name)), f.name
+        assert torch.equal(counts, w_counts)
+        assert offsets == w_offsets and min(offsets) > 0
+    assert all(c.captures == 1 for c in sim_graphs.values())
+    assert all(int(w[0].valid.sum()) > 48 * 100 for w in want)
+    cut = int(sum(w[1].sum() for w in want))
+    assert (cut > 0) is (capacity < 1000), cut

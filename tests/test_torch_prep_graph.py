@@ -12,7 +12,6 @@ keys, the profiler rule and the spans. The card's own graphs are held to
 the eager render in ``tests/test_torch_gpu.py``.
 """
 
-import contextlib
 import dataclasses
 import types
 
@@ -30,6 +29,7 @@ from raintpu_torch.physics.simulator import SimConfig, simulate_frames
 from raintpu_torch.render import frame
 from raintpu_torch.render.camera import CameraSettings, RenderSettings
 from raintpu_torch.utils import graphs, profiling
+import torch_graph_stand_in
 from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 W, H, B = 160, 96, 2
@@ -93,60 +93,17 @@ def _assert_equal(got, want):
         assert torch.equal(g, w)
 
 
-def _leaves(x):
-    if isinstance(x, torch.Tensor):
-        return [x]
-    if dataclasses.is_dataclass(x):
-        return [t for f in dataclasses.fields(x)
-                for t in _leaves(getattr(x, f.name))]
-    if isinstance(x, (list, tuple)):
-        return [t for v in x for t in _leaves(v)]
-    return []
-
-
-class _StandInGraph:
-    """torch.cuda.CUDAGraph's stand-in: its replay is set at capture."""
-
-    replay = None
-
-
 @pytest.fixture
 def stand_in(monkeypatch):
-    """A fresh PREP_GRAPHS that engages on the CPU, over stand-in graphs:
-    a capture runs the function on the graph's input buffers, and a
-    replay runs it again there, with no spans, and copies the result
-    into the outputs the capture returned."""
+    """A fresh PREP_GRAPHS that engages on the CPU, over stand-in graphs
+    (``torch_graph_stand_in``): a capture runs the function on the
+    graph's input buffers, and a replay runs it again there, with no
+    spans, and copies the result into the outputs the capture
+    returned."""
     cache = graphs.GraphCache("render.prep.replay")
     monkeypatch.setattr(frame, "PREP_GRAPHS", cache)
     monkeypatch.setattr(frame, "prep_graph_engages", lambda *a: True)
-
-    @contextlib.contextmanager
-    def capturing(graph, stream=None, capture_error_mode=None):
-        yield
-
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
-    monkeypatch.setattr(torch.cuda, "graph", capturing)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "Stream", lambda d: None)
-    capture = graphs.GraphCache._capture
-
-    def capture_and_replay(self, fn, args, device, held):
-        entry = capture(self, fn, args, device, held)
-
-        def replay():
-            # A graph's replay runs no Python, so it opens no span.
-            with pytest.MonkeyPatch.context() as quiet:
-                quiet.setattr(profiling, "span",
-                              lambda name: contextlib.nullcontext())
-                fresh = fn(*entry.inputs)
-            for out, new in zip(_leaves(entry.outputs), _leaves(fresh)):
-                out.copy_(new)
-
-        entry.graph.replay = replay
-        return entry
-
-    monkeypatch.setattr(graphs.GraphCache, "_capture", capture_and_replay)
+    torch_graph_stand_in.install(monkeypatch)
     return cache
 
 
