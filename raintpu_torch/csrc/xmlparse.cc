@@ -6,8 +6,7 @@
 // wd2 ip1 ip2 iw1 iw2/> children, vectors as "(a;b;c)"), so this parser
 // scans the buffer directly. Exposed through a minimal C ABI consumed via
 // ctypes (raintpu_torch/particles/native.py); cold parses matter when a
-// render farm touches thousands of sequence files (chip_smoke.py prints
-// the time of both parsers).
+// render farm touches thousands of sequence files.
 //
 // Built by raintpu_torch/cuda_build.py (g++ -O2 -fPIC -std=c++17 -shared)
 // into raintpu_torch/_build/ at first use.

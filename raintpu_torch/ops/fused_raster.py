@@ -81,8 +81,8 @@ N_PLANES_SAT = 8  # ... and sat_r, sat_g, sat_b (the saturation mask)
 # _patch_eval keeps ~15 tensors of that size alive.
 PLAIN_CHUNK_PX = 1 << 24
 # The kernel's image tile (rows, columns): one block per tile and frame,
-# its planes summed in shared memory. Of the tiles that chip_smoke.py
-# sweeps, (32, 64) timed best on the bench rungs, ~2% ahead of (16, 128);
+# its planes summed in shared memory. Of the tiles swept on the card,
+# (32, 64) timed best on the bench rungs, ~2% ahead of (16, 128);
 # on the CLI's rungs the two trade places from run to run (NVIDIA H100
 # 80GB HBM3, 700 W; PERF.md section 6).
 TILE_HW = (32, 64)

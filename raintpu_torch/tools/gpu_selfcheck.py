@@ -22,8 +22,9 @@ covers every class of the kernel's parameters.
 
 The JAX tool allowed 5e-2 between the TPU and interpret mode for the
 TPU's transcendental lowerings. The port holds the tighter bars it has
-held since its first slice (``chip_smoke.py``): the kernel is built with
---fmad=false and rounds as the plain version does. The JAX tool's
+held since its first slice, which the card tests import
+(``tests/test_torch_gpu.py``): the kernel is built with --fmad=false and
+rounds as the plain version does. The JAX tool's
 ``kernel_modes_ok`` gate is not ported: the port has no kernel modes.
 
 Run on a machine with a CUDA card:  python -m raintpu_torch.tools.gpu_selfcheck

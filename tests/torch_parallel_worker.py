@@ -8,8 +8,9 @@ and renders it on a dp 2 x sp 2 mesh (with and without the saturation
 planes), on a dp 4 x sp 1 mesh, and on a mesh over the first 2 ranks
 only; ``helpers`` (2 ranks) splits a work list, assembles a global tensor
 and renders the scene through the golden path (composite_mode "xla",
-the saturation planes on) on a dp 1 x sp 2 mesh; ``card`` (2 ranks on one CUDA card, gloo) renders the scene on
-a dp 1 x sp 2 mesh. Each rank writes what it saw to OUT (an .npz).
+the saturation planes on) on a dp 1 x sp 2 mesh; ``card`` (2 ranks on
+one CUDA card, gloo) renders the scene on a dp 1 x sp 2 mesh and on a
+dp 2 x sp 1 mesh. Each rank writes what it saw to OUT (an .npz).
 """
 
 import sys
@@ -128,15 +129,22 @@ def helpers_job(rank, in_path):
     return got
 
 
-def card_job(in_path):
+def card_job(rank, in_path):
     bg, depth, drops, bank, edges, tex_idx, cap = scene(in_path, "cuda")
     b, h, w = depth.shape
-    out = render_frames_sharded(
-        make_mesh(sp=2), bg, depth, drops, bank, edges,
-        port_config(h, w, cap), tex_idx=tex_idx)
-    return {k: v.cpu().numpy() for k, v in (
-        ("mask", out.rain_mask), ("image", out.rainy_image),
-        ("overflow", out.overflow))}
+    got = {}
+    # dp 1 x sp 2 over every frame, then dp 2 x sp 1: rank r renders
+    # frames [r * b / 2, (r + 1) * b / 2).
+    for prefix, sp, f in (("", 2, slice(0, b)),
+                          ("dp2_", 1, slice(rank * b // 2,
+                                            (rank + 1) * b // 2))):
+        out = render_frames_sharded(
+            make_mesh(sp=sp), bg[f], depth[f], drops.map(lambda t: t[f]),
+            bank, edges, port_config(h, w, cap), tex_idx=tex_idx[f])
+        got.update({prefix + k: v.cpu().numpy() for k, v in (
+            ("mask", out.rain_mask), ("image", out.rainy_image),
+            ("overflow", out.overflow))})
+    return got
 
 
 def main():
@@ -150,7 +158,7 @@ def main():
     try:
         jobs = {"render": lambda: render_job(rank, in_path),
                 "helpers": lambda: helpers_job(rank, in_path),
-                "card": lambda: card_job(in_path)}
+                "card": lambda: card_job(rank, in_path)}
         np.savez(out_path, **jobs[job]())
     finally:
         torch.distributed.destroy_process_group()
