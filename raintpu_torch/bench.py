@@ -50,9 +50,9 @@ Knobs (environment variables):
 
 The JAX bench's TPU kernel levers (PAIR, ROW_STRIP, NARROW, RESIDENT),
 their hardware gate and its backend probe have no
-counterpart: the port has one raster kernel and one blur kernel, built
-from ``raintpu_torch/csrc/`` before the first render, and ``launches``
-says that they ran. The drops come from the port's simulator on a
+counterpart: the port has one raster kernel and one blur kernel (and the
+cone photometry's kernel), built from ``raintpu_torch/csrc/`` before
+the first render, and ``launches`` says that the first two ran. The drops come from the port's simulator on a
 generator seeded SIM_SEED, so they are drops of the same law and
 number as the JAX bench's, not the same drops.
 """
@@ -93,7 +93,7 @@ SIM_CAPACITY = 512
 REPS = 5
 # The guard: a render with less rain-mask mass than this rendered none.
 MIN_MASK_MASS = 1.0
-KERNELS = ("fused_raster", "separable_blur")
+KERNELS = ("fused_raster", "separable_blur", "cone_sums")
 # The environment variables the bench reads.
 KNOBS = ("HW", "BATCH", "CAPACITY", "FALLRATE", "ITERS", "MODAL", "CDS",
          "FITTED", "DEVICE", "FIELDS_DTYPE")

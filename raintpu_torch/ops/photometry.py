@@ -12,11 +12,20 @@ sums under that mask give each drop's chromaticity and luminance. The
 envmap features can be block-reduced (``downsample``): solid-angle
 weights are summed per block, the inside test runs at block centers.
 
+On CUDA tensors :func:`cone_sums` launches the hand-written kernel in
+``raintpu_torch/csrc/cone_sums.cu`` (each test in registers, the drop's
+four sums accumulated there, nothing of size Q x N in memory; the
+texel axis split across blocks by :func:`cone_plan` where the drops are
+few). On CPU tensors it runs the plain version, :func:`_cone_sums`
+(the mask materialised and multiplied with the features), in chunks of
+the drop axis for large problems.
+
 Frames may carry a leading batch dimension throughout.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -80,18 +89,28 @@ def swap_yz(p: torch.Tensor) -> torch.Tensor:
     return torch.stack([p[..., 0], p[..., 2], p[..., 1]], dim=-1)
 
 
-# Largest (frames x Q pixels x N drops) cone mask built at once; larger
-# problems are chunked over the drop axis. Each chunk holds ~6 float32
-# (or bool) planes of this size, so 64 M elements stay under ~1.5 GB of
-# the card's 80 GB: the KITTI batch of 48 frames (Q = 2691 at
-# cone_downsample 4, N = 320) fits in one chunk.
+# The plain version's largest (frames x Q pixels x N drops) cone mask
+# built at once; larger problems are chunked over the drop axis. Each
+# chunk holds ~6 float32 (or bool) planes of this size, so 64 M elements
+# stay under ~1.5 GB.
 MAX_MASK_ELEMS = 64_000_000
 _FOV_CHUNK = 256
+
+# The kernel's tiling (csrc/cone_sums.cu): a block owns DROPS_PER_BLOCK
+# drops of one frame and walks its part of the texel axis CONE_TILE
+# texel blocks (one shared-memory tile) at a time; a launch aims at
+# BLOCKS_PER_SM blocks an SM.
+DROPS_PER_BLOCK = 512
+CONE_TILE = 256
+BLOCKS_PER_SM = 16
+# The kernel's grid takes at most this many frames and texel parts.
+MAX_GRID_YZ = 65535
 
 
 def _cone_sums(p: torch.Tensor, n: torch.Tensor, env: EnvFeatures,
                cos_t, R) -> torch.Tensor:
-    """Per-drop masked feature sums [x*sa, y*sa, Y*sa, sa] (..., N, 4).
+    """Per-drop masked feature sums [x*sa, y*sa, Y*sa, sa] (..., N, 4):
+    the plain version of :func:`cone_sums`.
 
     p, n: (..., N, 3). The (Q, N) inside mask is 0/1, so the masked sum
     is a matmul of the mask with the features (exact products in
@@ -108,6 +127,143 @@ def _cone_sums(p: torch.Tensor, n: torch.Tensor, env: EnvFeatures,
     inside = (s >= 0) & (s * s >= (cos_t * cos_t) * w2)
     return torch.matmul(inside.to(env.feats.dtype).transpose(-1, -2),
                         env.feats)
+
+
+def _plain_cone_sums(p: torch.Tensor, n: torch.Tensor, env: EnvFeatures,
+                     cos_t, R) -> torch.Tensor:
+    """:func:`_cone_sums`, in chunks of ``_FOV_CHUNK`` drops where the
+    mask would pass ``MAX_MASK_ELEMS`` elements."""
+    n_drops = p.shape[-2]
+    frames = math.prod(p.shape[:-2])
+    q = env.dirs.shape[0]
+    if frames * q * n_drops <= MAX_MASK_ELEMS or n_drops <= _FOV_CHUNK:
+        return _cone_sums(p, n, env, cos_t, R)
+    return torch.cat([
+        _cone_sums(p[..., i:i + _FOV_CHUNK, :],
+                   n[..., i:i + _FOV_CHUNK, :], env, cos_t, R)
+        for i in range(0, n_drops, _FOV_CHUNK)], dim=-2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConePlan:
+    """The kernel's grid: ``drop_blocks`` blocks along a frame's drops,
+    the texel axis in ``splits`` parts of ``q_per_split`` texel blocks
+    (the last part may be shorter), added in order after."""
+
+    drop_blocks: int
+    splits: int
+    q_per_split: int
+
+
+def cone_plan(frames: int, n_drops: int, q: int, sms: int) -> ConePlan:
+    """Launch plan for ``frames`` x ``n_drops`` drops over ``q`` texel
+    blocks on a card of ``sms`` SMs: the texel axis split into as few
+    parts as make BLOCKS_PER_SM blocks an SM, and into no more parts
+    than it has tiles of CONE_TILE texel blocks."""
+    drop_blocks = -(-n_drops // DROPS_PER_BLOCK)
+    want = -(-BLOCKS_PER_SM * sms // (frames * drop_blocks))
+    splits = max(1, min(want, -(-q // CONE_TILE), MAX_GRID_YZ))
+    q_per_split = -(-q // splits)
+    return ConePlan(drop_blocks, -(-q // q_per_split), q_per_split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _kernel_fn():
+    from raintpu_torch import cuda_build
+
+    lib = cuda_build.load("cone_sums")
+    fn = lib.cone_sums_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 3
+                       + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.cone_sums_error_string.argtypes = [ctypes.c_int]
+        lib.cone_sums_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _broadcast(a, b) -> tuple:
+    """The broadcast of two shapes; a mismatch raises where a tensor is
+    expanded to it. (torch.broadcast_shapes imports torch.fx's symbolic
+    shapes, and with them sympy: seconds at its first call.)"""
+    n = max(len(a), len(b))
+    a, b = (1,) * (n - len(a)) + tuple(a), (1,) * (n - len(b)) + tuple(b)
+    return tuple(y if x == 1 else x for x, y in zip(a, b))
+
+
+def _kernel_cone_sums(p: torch.Tensor, n: torch.Tensor, env: EnvFeatures,
+                      cos_t: torch.Tensor, R: float) -> torch.Tensor:
+    """:func:`_cone_sums` by the CUDA kernel: one launch (two where the
+    texel axis is split), on the current stream, no synchronisation.
+    pn, pp and cos_t^2 are the plain version's expressions, so the
+    kernel's inside mask is the plain version's."""
+    tensors = (p, n, env.dirs, env.feats, cos_t)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError("cone_sums: the kernel takes float32 tensors")
+    if any(t.device != p.device for t in tensors):
+        raise ValueError("cone_sums: tensors on more than one device")
+    lead = _broadcast(p.shape[:-2], env.feats.shape[:-2])
+    frames, n_drops, q = math.prod(lead), p.shape[-2], env.dirs.shape[0]
+    if frames > MAX_GRID_YZ:
+        raise ValueError(f"cone_sums: {frames} frames, the kernel takes "
+                         f"at most {MAX_GRID_YZ}")
+    if frames == 0 or n_drops == 0 or q == 0:
+        return torch.zeros(lead + (n_drops, 4), dtype=torch.float32,
+                           device=p.device)
+    pn = (p * n).sum(-1)
+    pp = (p * p).sum(-1)
+    c2 = cos_t * cos_t
+
+    def rows(t, width):
+        return t.expand(lead + t.shape[-2:]).reshape(
+            frames, n_drops, width).contiguous()
+
+    p3, n3 = rows(p, 3), rows(n, 3)
+    pn, pp = rows(pn[..., None], 1), rows(pp[..., None], 1)
+    dirs = env.dirs.contiguous()
+    feats = env.feats.expand(lead + env.feats.shape[-2:]).reshape(
+        frames, q, 4).contiguous()
+    plan = cone_plan(frames, n_drops, q, _sm_count(p.device))
+    out = torch.empty((frames, n_drops, 4), dtype=torch.float32,
+                      device=p.device)
+    partial = (torch.empty((plan.splits, frames, n_drops, 4),
+                           dtype=torch.float32, device=p.device)
+               if plan.splits > 1 else None)
+    lib, fn = _kernel_fn()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = fn(p3.data_ptr(), n3.data_ptr(), pn.data_ptr(), pp.data_ptr(),
+                 dirs.data_ptr(), feats.data_ptr(), c2.data_ptr(), float(R),
+                 float(R * R), float(2.0 * R),
+                 None if partial is None else partial.data_ptr(),
+                 out.data_ptr(), frames, n_drops, q, plan.drop_blocks,
+                 plan.splits, plan.q_per_split, stream)
+    if err != 0:
+        raise RuntimeError("cone_sums kernel launch failed: "
+                           + lib.cone_sums_error_string(err).decode())
+    cone_sums.launches += 1
+    return out.reshape(lead + (n_drops, 4))
+
+
+def cone_sums(p: torch.Tensor, n: torch.Tensor, env: EnvFeatures,
+              cos_t: torch.Tensor, R: float) -> torch.Tensor:
+    """Per-drop masked feature sums [x*sa, y*sa, Y*sa, sa] (..., N, 4)
+    of the cones with apexes ``p`` and axes ``n`` (..., N, 3): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.
+    ``cone_sums.launches`` counts kernel launches."""
+    if p.device.type == "cpu":
+        return _plain_cone_sums(p, n, env, cos_t, R)
+    if p.device.type != "cuda":
+        raise ValueError(f"cone_sums: no kernel for {p.device.type}")
+    return _kernel_cone_sums(p, n, env, cos_t, R)
+
+
+cone_sums.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,18 +295,7 @@ def drop_fov_stats(world_pos: torch.Tensor,
     n = p / torch.clamp_min(norm, 1e-12)           # cone axis per drop
 
     cos_t = _cos_half_angle(float(fov_deg), p.dtype, p.device)
-    R = float(sphere_radius)
-
-    n_drops = p.shape[-2]
-    frames = math.prod(p.shape[:-2])
-    q = env.dirs.shape[0]
-    if frames * q * n_drops <= MAX_MASK_ELEMS or n_drops <= _FOV_CHUNK:
-        sums = _cone_sums(p, n, env, cos_t, R)
-    else:
-        sums = torch.cat([
-            _cone_sums(p[..., i:i + _FOV_CHUNK, :],
-                       n[..., i:i + _FOV_CHUNK, :], env, cos_t, R)
-            for i in range(0, n_drops, _FOV_CHUNK)], dim=-2)
+    sums = cone_sums(p, n, env, cos_t, float(sphere_radius))
 
     # Degenerate drops (zero world position, or a cone that misses the
     # map) have no coverage: neutral chromaticity + zero luminance

@@ -19,6 +19,7 @@ from raintpu_torch.data.textures import (procedural_streak_database,
                                          texture_bank)
 from raintpu_torch.ops import blur_kernel
 from raintpu_torch.ops import fused_raster as tfr
+from raintpu_torch.ops import photometry as tphot
 from raintpu_torch.ops.blur import cv2_gaussian_kernel, separable_blur_hw
 from raintpu_torch.ops.rasterize import BucketSpec, RasterConfig
 from raintpu_torch.physics.simulator import SimConfig, simulate_frames
@@ -125,12 +126,13 @@ def test_bf16_kernel_matches_plain(cuda, operands, n_planes):
 def test_render_goes_through_the_kernel(cuda):
     cfg, gen, drops, bg, depth, tex, edges = _scene(cuda)
     before = (tfr.fused_raster_composite.launches,
-              blur_kernel.separable_blur.launches)
+              blur_kernel.separable_blur.launches, tphot.cone_sums.launches)
     out = frame.render_frames(bg, depth, drops, tex, edges, cfg,
                               generator=gen)
     torch.cuda.synchronize()
     assert tfr.fused_raster_composite.launches - before[0] == 1
     assert blur_kernel.separable_blur.launches - before[1] == 1
+    assert tphot.cone_sums.launches - before[2] == 1
     assert bool(torch.isfinite(out.rainy_image).all())
     assert out.rain_mask.sum().item() > 1.0
 
@@ -733,6 +735,168 @@ def test_blur_kernel_wide_axes_every_radius(cuda, shape, ksize):
     rows = sum(t * xp[:, i:i + h] for i, t in enumerate(taps))
     want = sum(t * rows[:, :, i:i + w] for i, t in enumerate(taps))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+# The cone sums' shapes: frames, the photometry envmap (h, w) at
+# cone_downsample 4 (its texel blocks: KITTI 23 x 117 = 2,691, the
+# nuScenes rig 56 x 149 = 8,344, Cityscapes 31 x 97 = 3,007; KITTI at
+# cone_downsample 1, 93 x 477 = 44,361) and the render capacity N.
+CONE_CASES = {"kitti": (48, (23, 117), 320),
+              "rig": (6, (56, 149), 3200),
+              "rig_slice": (1, (56, 149), 16000),
+              "cityscapes": (48, (31, 97), 768),
+              "kitti_cds1": (8, (93, 477), 320)}
+# Bars on the sums with real features, per drop and column, as a share
+# of the drop's solid-angle sum. Against the plain mask's sums in
+# float64 the kernel sums a tile (256 texel blocks) and then the tiles'
+# sums, so its error barely grows with Q (at most 1.22e-6 at every
+# shape on an H100): CONE_RTOL_F64. Against the plain
+# version the bar is that version's own error, one sequential float32 sum
+# of Q terms a drop in its matrix product, which grows as sqrt(Q)
+# roundings of 2^-24 (0.9-1.9 of them measured, 2.4e-5 at KITTI's 44,361
+# texels at cone_downsample 1): cone_rtol(Q), four of them.
+CONE_RTOL_F64 = 4e-6
+
+
+def cone_rtol(q):
+    return 4.0 * q ** 0.5 * 2.0 ** -24
+
+
+def _cone_inputs(dev, frames, env_hw, n, seed=0):
+    """(p, n, env, cos_t) as drop_fov_stats makes them, for ``n`` drops
+    a frame spread around the camera (from 3 drops on, the first at the
+    origin and the second far outside the sphere, its cone facing away
+    from the map), over a random envmap of ``env_hw``; ``frames`` 0: no
+    frame axis."""
+    rng = np.random.RandomState(seed)
+    lead = (frames,) if frames else ()
+    mid = np.stack([rng.uniform(-4, 4, lead + (n,)),
+                    rng.uniform(-2, 3, lead + (n,)),
+                    rng.uniform(0.3, 20, lead + (n,))], -1)
+    if n > 2:
+        mid[..., 0, :] = 0.0
+        mid[..., 1, :] = (3.0, -2.0, 60.0)
+    env = tphot.env_features(torch.as_tensor(
+        rng.rand(*lead, *env_hw, 3), dtype=torch.float32, device=dev),
+        downsample=1)
+    p = tphot.swap_yz(torch.as_tensor(mid, dtype=torch.float32, device=dev))
+    nrm = p / torch.clamp_min(torch.sqrt((p * p).sum(-1, keepdim=True)),
+                              1e-12)
+    return p, nrm, env, tphot._cos_half_angle(82.5, torch.float32, dev)
+
+
+def _ones(env):
+    return dataclasses.replace(env, feats=torch.ones_like(env.feats))
+
+
+def _assert_cone_sums_near(got, want, rtol):
+    """Covered drops the same, every sum within ``rtol`` of the drop's
+    solid-angle sum."""
+    assert torch.equal(got[..., 3] > 1e-9, want[..., 3] > 1e-9)
+    got, want = got.double(), want.double()
+    off = (got - want).abs() / want[..., 3:].clamp_min(1e-30)
+    off = torch.where(want[..., 3:] > 0, off, (got - want).abs())
+    print(f"largest difference: {float(off.max()):.3g} of the sa sum "
+          f"(bar {rtol:.3g})")
+    assert float(off.max()) <= rtol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CONE_CASES))
+def test_cone_kernel_mask_is_the_plain_mask(cuda, case):
+    """With every feature 1 the four sums count the texel blocks inside
+    each cone, exactly in float32 in any order: the kernel's counts equal
+    the plain version's bit for bit, so no edge block flips."""
+    frames, env_hw, n = CONE_CASES[case]
+    p, nrm, env, cos_t = _cone_inputs(cuda, frames, env_hw, n)
+    ones = _ones(env)
+    before = tphot.cone_sums.launches
+    got = tphot.cone_sums(p, nrm, ones, cos_t, 10.0)
+    want = tphot._plain_cone_sums(p, nrm, ones, cos_t, 10.0)
+    torch.cuda.synchronize()
+    assert tphot.cone_sums.launches - before == 1
+    assert torch.equal(got, want)
+    counts = want[..., 3]
+    assert float(counts.max()) > 0 and float(counts.min()) == 0
+    # The drop at the origin and the one whose cone misses the map.
+    assert float(counts[..., :2].max()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CONE_CASES))
+def test_cone_kernel_sums_match_plain(cuda, case):
+    """Real features: the kernel's sums within CONE_RTOL_F64 of the plain
+    mask's sums in float64 and within cone_rtol(Q) of the plain
+    version's, relative to each drop's solid-angle sum."""
+    frames, env_hw, n = CONE_CASES[case]
+    p, nrm, env, cos_t = _cone_inputs(cuda, frames, env_hw, n, seed=1)
+    got = tphot.cone_sums(p, nrm, env, cos_t, 10.0)
+    want = tphot._plain_cone_sums(p, nrm, env, cos_t, 10.0)
+    exact = tphot._plain_cone_sums(
+        p, nrm, dataclasses.replace(env, feats=env.feats.double()), cos_t,
+        10.0)
+    torch.cuda.synchronize()
+    print(f"{case}: the plain version against float64")
+    _assert_cone_sums_near(want, exact, 1.0)
+    print(f"{case}: the kernel against float64, then against plain")
+    _assert_cone_sums_near(got, exact, CONE_RTOL_F64)
+    _assert_cone_sums_near(got, want, cone_rtol(env.dirs.shape[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames,env_hw,n", [(1, (1, 1), 1),
+                                             (4, (56, 149), 1),
+                                             (0, (1, 257), 513),
+                                             (3, (17, 31), 511),
+                                             (2, (5, 103), 1025),
+                                             (1, (56, 149), 2)])
+def test_cone_kernel_odd_shapes(cuda, frames, env_hw, n):
+    """One drop, one texel block, no frame axis, N and Q just past the
+    kernel's block and tile, and a zero world position and a cone that
+    misses the map (the first two drops): the covered drops and the
+    counts equal the plain version's, the sums near it."""
+    p, nrm, env, cos_t = _cone_inputs(cuda, frames, env_hw, n, seed=2)
+    for e in (_ones(env), env):
+        got = tphot.cone_sums(p, nrm, e, cos_t, 10.0)
+        want = tphot._plain_cone_sums(p, nrm, e, cos_t, 10.0)
+        assert got.shape == want.shape
+        if e is not env:
+            assert torch.equal(got, want)
+        _assert_cone_sums_near(got, want, cone_rtol(env.dirs.shape[0]))
+    if n > 2:
+        assert float(want[..., :2, 3].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["kitti", "rig"])
+def test_cone_kernel_is_deterministic_and_replays(cuda, case):
+    """Two launches give the same sums bit for bit, and so does a CUDA
+    graph's replay of the launch, also on inputs copied in after the
+    capture."""
+    frames, env_hw, n = CONE_CASES[case]
+    p, nrm, env, cos_t = _cone_inputs(cuda, frames, env_hw, n, seed=3)
+    q, _, env2, _ = _cone_inputs(cuda, frames, env_hw, n, seed=4)
+    first = tphot.cone_sums(p, nrm, env, cos_t, 10.0)
+    again = tphot.cone_sums(p, nrm, env, cos_t, 10.0)
+    other = tphot.cone_sums(q, nrm, env2, cos_t, 10.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tphot.cone_sums(p, nrm, env, cos_t, 10.0)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = tphot.cone_sums(p, nrm, env, cos_t, 10.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+    p.copy_(q)
+    env.feats.copy_(env2.feats)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, other)
 
 
 @pytest.mark.gpu

@@ -1,4 +1,4 @@
-"""Launch plans of the port's two CUDA kernels, checked on the CPU.
+"""Launch plans of the port's CUDA kernels, checked on the CPU.
 
 The raster kernel (K1/K2/K3) takes every rung in one launch, one block
 per (image tile, frame), each block listing the drops whose windows
@@ -10,7 +10,8 @@ the image once, grids stay inside CUDA's limits, shared memory fits
 every ladder's series, a launch takes at most ``MAX_RUNGS`` rungs, the
 tile lists (``_tile_drops``, a plain mirror of the kernel's binning)
 agree with a pixel-by-pixel enumeration, and every radius the blur takes
-fits 227 KB of shared memory.
+fits 227 KB of shared memory. The cone sums' plan (``cone_plan``) covers
+every drop and texel block once and fills the card.
 """
 
 import dataclasses
@@ -21,6 +22,7 @@ import torch
 
 from raintpu_torch.ops import blur_kernel
 from raintpu_torch.ops import fused_raster as tfr
+from raintpu_torch.ops import photometry as tphot
 from raintpu_torch.ops.rasterize import BucketSpec, RasterConfig
 
 # bench.py's hand ladder (ph, pw, capacity) and the CLI's default ladder
@@ -276,3 +278,50 @@ def test_blur_plan_of_the_nuscenes_shapes(n, ksize):
 def test_blur_plan_refuses_more_tiles_than_the_kernel_numbers():
     with pytest.raises(ValueError, match="limit"):
         blur_kernel.blur_plan(blur_kernel.MAX_PLANES, 2 ** 20, 2048, 1)
+
+
+# The cone sums' (frames, N, Q): KITTI at 10 and 200 mm/hr, the nuScenes
+# rig, Cityscapes (cone_downsample 4), KITTI at cone_downsample 1, and
+# odd ones (one drop or texel block, a frame count at the grid's limit,
+# a block and a tile and one more).
+CONE_SHAPES = ((48, 320, 2691), (48, 3200, 2691), (6, 16000, 8344),
+               (48, 768, 3007), (48, 320, 44361), (1, 1, 1), (1, 1, 300),
+               (tphot.MAX_GRID_YZ, 1, 5), (3, 513, 257))
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("frames,n,q", CONE_SHAPES)
+def test_cone_plan_covers_drops_and_texels_once(frames, n, q):
+    plan = tphot.cone_plan(frames, n, q, H100_SMS)
+    per = tphot.DROPS_PER_BLOCK
+    assert (plan.drop_blocks - 1) * per < n <= plan.drop_blocks * per
+    assert (plan.splits - 1) * plan.q_per_split < q
+    assert q <= plan.splits * plan.q_per_split
+    assert 1 <= plan.splits <= min(tphot.MAX_GRID_YZ,
+                                   -(-q // tphot.CONE_TILE))
+    # Enough blocks to fill the card, unless every tile is a part.
+    blocks = frames * plan.drop_blocks * plan.splits
+    assert (blocks >= tphot.BLOCKS_PER_SM * H100_SMS
+            or plan.splits == -(-q // tphot.CONE_TILE))
+    # As few parts as that takes.
+    if plan.splits > 1:
+        fewer = frames * plan.drop_blocks * (plan.splits - 1)
+        assert fewer < tphot.BLOCKS_PER_SM * H100_SMS
+
+
+def test_cone_plan_splits_only_where_drops_are_few():
+    """The rig's 96,000 drop slots and KITTI's 15,360 both split; a
+    batch whose drops alone fill the card does not."""
+    assert tphot.cone_plan(6, 16000, 8344, H100_SMS).splits == 11
+    assert tphot.cone_plan(48, 320, 2691, H100_SMS).splits == 11
+    assert tphot.cone_plan(48, 3200, 2691, H100_SMS).splits == 7
+    assert tphot.cone_plan(48, 24000, 2691, H100_SMS).splits == 1
+
+
+@pytest.mark.parametrize("a,b", [((48,), ()), ((), (6,)), ((6,), (6,)),
+                                 ((2, 3), (3,)), ((1,), (5,)), ((0,), (1,)),
+                                 ((4, 1), (1, 7)), ((), ())])
+def test_cone_lead_shape_is_the_broadcast(a, b):
+    """The kernel wrapper's leading shape of drops and features is
+    torch's broadcast of the two."""
+    assert tphot._broadcast(a, b) == tuple(torch.broadcast_shapes(a, b))

@@ -161,6 +161,36 @@ def test_photometry(rng, downsample, monkeypatch):
     close(tphot.drop_colors(torch.as_tensor(mid), t_feat), got, atol=1e-6)
 
 
+def test_cone_sums_on_the_cpu_are_the_plain_sums(rng, monkeypatch):
+    """On CPU tensors drop_fov_stats runs the plain cone sums, never the
+    kernel; chunked over the drop axis they agree with one chunk."""
+    env = tphot.env_features(
+        torch.as_tensor(rng.rand(2, 12, 40, 3).astype(np.float32)),
+        downsample=2)
+    p = tphot.swap_yz(torch.as_tensor(
+        np.stack([_drops_mid(rng, 40) for _ in range(2)])))
+    n = p / torch.clamp_min(torch.sqrt((p * p).sum(-1, keepdim=True)),
+                            1e-12)
+    cos_t = tphot._cos_half_angle(82.5, torch.float32, p.device)
+
+    def refuse(*args):
+        raise AssertionError("the kernel's path on CPU tensors")
+
+    monkeypatch.setattr(tphot, "_kernel_cone_sums", refuse)
+    launches = tphot.cone_sums.launches
+    want = tphot._cone_sums(p, n, env, cos_t, 10.0)
+    assert torch.equal(tphot.cone_sums(p, n, env, cos_t, 10.0), want)
+    stats = tphot.drop_fov_stats(tphot.swap_yz(p), env, fov_deg=165.0)
+    monkeypatch.setattr(tphot, "MAX_MASK_ELEMS", 1)
+    monkeypatch.setattr(tphot, "_FOV_CHUNK", 16)
+    close(tphot.cone_sums(p, n, env, cos_t, 10.0), want, atol=1e-6)
+    for got, w in zip(tphot.drop_fov_stats(tphot.swap_yz(p), env,
+                                           fov_deg=165.0), stats):
+        close(got, w, atol=1e-6)
+    assert tphot.cone_sums.launches == launches
+    assert float(want[..., 3].min()) == 0.0 < float(want[..., 3].max())
+
+
 def test_dsd(rng):
     d = rng.uniform(0.05, 5.0, 64).astype(np.float32)
     u = rng.uniform(0.0, 1.0, 64).astype(np.float32)
